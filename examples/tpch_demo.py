@@ -6,7 +6,7 @@ writes/reopens the container, and runs the whole query surface —
 predicates, aggregates, GROUP BY, top-k, joins, partitioned datasets —
 verifying every answer against NumPy. Run it anywhere JAX runs:
 
-    python examples/tpch_demo.py            # local device (TPU if present)
+    python examples/tpch_demo.py            # local device (GPU if present)
     JAX_PLATFORMS=cpu python examples/tpch_demo.py
 """
 

@@ -1,6 +1,6 @@
-"""giddy-tpu: TPU-native lossless lightweight columnar decompression.
+"""giddy-tpu: lossless lightweight columnar decompression on the GPU.
 
-A from-scratch JAX/Pallas framework with the capabilities of
+A from-scratch JAX framework with the capabilities of
 github.com/eyalroz/libgiddy (CUDA; see SURVEY.md — the reference mount was
 empty, SURVEY.md §0, so upstream citations are reconstructed paths and the
 CPU codecs in :mod:`giddy_tpu.ref` are the bit-exactness oracle).
@@ -13,7 +13,7 @@ from .api import decode, decode_columns, decode_ref, encode, get_decoder
 from .format import EncodedColumn, container_bytes, read_container, write_container
 from .join import join_indices, join_tables
 from .nulls import count_valid, decode_masked, null_count, valid_mask
-from .registry import get, plan, schemes
+from .registry import get, schemes
 from .table import Table
 from .topk import order_by, top_k
 from .util import GROUP, LANES, SLOTS
@@ -39,7 +39,6 @@ __all__ = [
     "join_tables",
     "null_count",
     "order_by",
-    "plan",
     "read_container",
     "top_k",
     "schemes",

@@ -2,13 +2,13 @@
 
 The DBMS scan-aggregate shape (the reference's MonetDB caller computed
 aggregates over decoded columns host-side; here the aggregation fuses into
-the decode). For the unpack-epilogue schemes (nbit, dzbf, for) a Pallas
-kernel folds each slot vector into per-(group, lane) accumulators — the
+the decode). For the unpack-epilogue schemes (nbit, dzbf, for) one fused
+program folds each slot vector into per-(group, lane) accumulators — the
 column's decoded form never exists anywhere, only (ng, LANES) partials
-(1/32768 of the decoded bytes) cross back. Other schemes decode in-jit
+(1/32 of the decoded elements) are written. Other schemes decode in-jit
 and reduce with the same slot math in XLA.
 
-Exactness: TPU vectors are 32-bit, so 64-bit sums accumulate as
+Exactness: device vectors stay 32-bit, so 64-bit sums accumulate as
 (lo, hi) uint32 pairs with explicit carries; signed columns additionally
 count sign bits, and the true sum is ``S_unsigned - N_neg * 2**(8*w)``
 (two's complement identity). Integer sums are exact Python ints. min/max
@@ -33,8 +33,7 @@ import jax.numpy as jnp
 def _key_map_traced(v, kind: str, itemsize: int):
     """uint32 payload -> monotone *signed int32* ordering key (traced).
 
-    Mosaic lowers signed vector min/max but not unsigned, so keys are
-    biased such that signed int32 compare gives the right order.
+    Keys are biased such that signed int32 compare gives the right order.
     """
     if kind == "i":
         vi = jax.lax.bitcast_convert_type(v, jnp.int32)
@@ -102,11 +101,10 @@ def _slot_fold(slot_fn, pos_row, n: int, kind: str, itemsize: int, agg: str, sha
 
 
 def _epilogue_agg_call(col: EncodedColumn, agg: str):
-    """Fused unpack+aggregate kernel for nbit/dzbf/for."""
-    from jax.experimental import pallas as pl
-
-    from .kernels.common import block_spec, use_interpret
-    from .registry import plan
+    """Fused unpack+aggregate for nbit/dzbf/for: slot vectors fold straight
+    into (ng, LANES) partials, so the decoded column never materializes."""
+    from . import nulls
+    from .kernels.lanes import unpack_slot
 
     scheme = col.scheme
     bits = col.params["bits"] if scheme in ("nbit", "for") else 8 * col.params["width"]
@@ -114,81 +112,26 @@ def _epilogue_agg_call(col: EncodedColumn, agg: str):
     dt = np_dtype(col.dtype)
     kind, itemsize = dt.kind, dt.itemsize
     n = col.n
-    pl_plan = plan(ng * GROUP, 2 * 4 * ((bits + 4) * LANES))
-    r = pl_plan.groups_per_block
-    n_out = 3 if agg == "sum" else 1
-    from . import nulls
-
     with_valid = agg == "sum" and nulls.is_nullable(col)
+    row = jax.lax.broadcasted_iota(jnp.int32, (ng, LANES), 0)
+    lane = jax.lax.broadcasted_iota(jnp.int32, (ng, LANES), 1)
+    pos_row = row * GROUP + lane
 
-    def body(x, ref, out_refs, vw=None):
+    def call(streams, vw=None):
+        x = streams["packed"]
         if x.dtype != jnp.uint32:
             x = jax.lax.bitcast_convert_type(x, jnp.uint32)
-        mask = jnp.uint32(0xFFFFFFFF) if bits == 32 else jnp.uint32((1 << bits) - 1)
+        ref = streams["refs_g"] if scheme == "for" else None
 
         def slot(i):
-            w0, s = divmod(i * bits, 32)
-            v = x[:, w0 * LANES : (w0 + 1) * LANES]
-            if s:
-                v = v >> jnp.uint32(s)
-            if s + bits > 32:
-                v = v | (x[:, (w0 + 1) * LANES : (w0 + 2) * LANES] << jnp.uint32(32 - s))
-            if bits < 32:
-                v = v & mask
-            if ref is not None:
-                v = v + ref
-            return v
+            v = unpack_slot(x, bits, i)
+            return v + ref if ref is not None else v
 
-        pid = pl.program_id(0)
-        row = jax.lax.broadcasted_iota(jnp.int32, (x.shape[0], LANES), 0)
-        lane = jax.lax.broadcasted_iota(jnp.int32, (x.shape[0], LANES), 1)
-        pos_row = (pid * r + row) * GROUP + lane
-        accs = _slot_fold(slot, pos_row, n, kind, itemsize, agg, (x.shape[0], LANES), vw=vw)
-        for o, a in zip(out_refs, accs):
-            o[:] = a
-
-    # validity words ride in as one more (r, LANES) block when the column
-    # is nullable (sum only — min/max are ffill-exact, nulls.py)
-    if scheme == "for":
-
-        def kernel(in_ref, ref_ref, *rest):
-            ref = jnp.broadcast_to(ref_ref[:], (ref_ref.shape[0], LANES))
-            if with_valid:
-                body(in_ref[:], ref, rest[1:], vw=rest[0][:])
-            else:
-                body(in_ref[:], ref, rest)
-
-        in_specs = [block_spec((r, bits * LANES), lambda i: (i, 0)),
-                    block_spec((r, 1), lambda i: (i, 0))]
-    else:
-
-        def kernel(in_ref, *rest):
-            if with_valid:
-                body(in_ref[:], None, rest[1:], vw=rest[0][:])
-            else:
-                body(in_ref[:], None, rest)
-
-        in_specs = [block_spec((r, bits * LANES), lambda i: (i, 0))]
-    if with_valid:
-        in_specs.append(block_spec((r, LANES), lambda i: (i, 0)))
-
-    call = pl.pallas_call(
-        kernel,
-        grid=(pl_plan.grid,),
-        in_specs=in_specs,
-        out_specs=[block_spec((r, LANES), lambda i: (i, 0))] * n_out,
-        out_shape=[jax.ShapeDtypeStruct(
-            (ng, LANES), jnp.uint32 if agg == "sum" else jnp.int32)] * n_out,
-        interpret=use_interpret(),
-    )
+        return _slot_fold(slot, pos_row, n, kind, itemsize, agg, (ng, LANES), vw=vw)
 
     if with_valid:
-        if scheme == "for":
-            return lambda streams, vw: call(streams["packed"], streams["refs_g"], vw)
-        return lambda streams, vw: call(streams["packed"], vw)
-    if scheme == "for":
-        return lambda streams: call(streams["packed"], streams["refs_g"])
-    return lambda streams: call(streams["packed"])
+        return call
+    return lambda streams: call(streams)
 
 
 def _general_agg_fn(col: EncodedColumn, agg: str, with_valid: bool):

@@ -1,7 +1,7 @@
 """Public decode API: the analog of libgiddy call stack CS-2 (SURVEY.md §4).
 
 ``decode(col)``:  factory lookup → (cached) jit specialization → device
-streams → Pallas/XLA decode → logical-dtype array. Decoders are cached by
+streams → XLA decode → logical-dtype array. Decoders are cached by
 the column's static key, mirroring the reference's
 name→instantiated-kernel factory.
 """

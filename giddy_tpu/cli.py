@@ -1,4 +1,4 @@
-"""Benchmark / validation CLI — the L6 layer of the TPU build (SURVEY.md §2;
+"""Benchmark / validation CLI — the L6 layer of the build (SURVEY.md §2;
 the upstream library has no CLI, §2 "no L6").
 
 Subcommands:
@@ -410,6 +410,9 @@ def main(argv=None) -> None:
     b.set_defaults(fn=cmd_bench)
 
     args = p.parse_args(argv)
+    from .util import enable_compile_cache
+
+    enable_compile_cache()
     try:
         args.fn(args)
     except (ValueError, FileNotFoundError) as e:

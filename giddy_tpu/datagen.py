@@ -110,3 +110,30 @@ def gen_column(scheme: str, n: int, rng: np.random.Generator, *, hard: bool = Fa
             np.int64(1_700_000_000_000_000_000) + np.cumsum(rng.integers(0, 1000, n))
         ).astype(np.int64)
     raise ValueError(scheme)
+
+
+def mixed_container(n: int, rng: np.random.Generator) -> list:
+    """The 8-column mixed container (BASELINE configs[4]): delta
+    timestamps, nbit, dict, rle status flags, compressed-index patched,
+    ALP prices, delta2 sampled timestamps and a poly2 model column — each
+    ``n`` rows, encoded."""
+    from . import api as gt
+
+    cols = []
+    base = (np.cumsum(rng.integers(0, 8, n)) + 1_600_000_000).astype(np.int32)
+    cols.append(gt.encode(base, "delta", name="ts"))
+    cols.append(gt.encode((base % 4096).astype(np.int32), "nbit", name="nb"))
+    vocab = np.arange(32, dtype=np.int32) * 7 - 50
+    cols.append(gt.encode(vocab[rng.integers(0, 32, n)], "dict", name="dc"))
+    cols.append(gt.encode(np.repeat(rng.integers(0, 5, n // 64).astype(np.int32), 64), "rle", name="st"))
+    pv = rng.integers(0, 200, n, dtype=np.int64).astype(np.int32)
+    pv[rng.choice(n, n // 200, replace=False)] = 2**29
+    cols.append(gt.encode(pv, "patched", kind="compressed", name="pf"))
+    prices = np.round(rng.uniform(0, 1000, n), 2).astype(np.float32)
+    cols.append(gt.encode(prices, "alp", name="px"))
+    sampled = (np.cumsum(1000 + rng.integers(0, 4, n)) + 1_600_000_000).astype(np.int32)
+    cols.append(gt.encode(sampled, "delta2", name="ts2"))
+    arcs = gen_column("model", n, rng)  # parabolic frames -> kind=poly2
+    cols.append(gt.encode(arcs, "model", name="md"))
+    return cols
+

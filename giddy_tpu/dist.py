@@ -5,11 +5,11 @@ stack CS-5): the GROUP tile is the unit of distribution (FORMAT.md §3) —
 per-group streams shard on the group dimension, small side streams
 (dictionaries, frame references, model coefficients, bitmap values)
 replicate and are broadcast once per column, and steady-state decode needs
-zero per-element communication. Each shard runs the *same* Pallas decoder a
-single chip runs; the mesh only changes the BlockSpec'd outer loop.
+zero per-element communication. Each shard runs the *same* decoder a
+single device runs, inside ``shard_map``.
 
 Multi-host entry: ``jax.distributed.initialize()`` by the caller, then a
-mesh over all devices; DCN only ever carries the initial replicated-stream
+mesh over all devices; the network only ever carries the initial replicated-stream
 broadcast.
 """
 
@@ -136,45 +136,28 @@ def dist_form(col: EncodedColumn, n_shards: int) -> DistForm:
         df.replicated["values"] = st["values"]
         return df
     if scheme in ("rle", "rpe"):
-        from .kernels.rle import scatter_prep, tile_prep
+        from .kernels.rle import run_tables
 
         r_pad = p["r_pad"]
         key = "run_ends" if scheme == "rle" else "run_starts"
         bounds = st[key].reshape(ng, r_pad)
         vals = st["run_values"].reshape(ng, r_pad)
-        if ng != ng_pad:
+        if ng != ng_pad:  # pad groups: one run ending at GROUP
             bounds = np.concatenate([bounds, np.full((ng_pad - ng, r_pad), GROUP, np.int32)])
             vals = _pad_groups(vals, ng, ng_pad)
-        # single-pass tile-chain form (leading dim ng_pad: shards/slices on
-        # groups); pathologically dense runs fall back to scatter pairs
-        pre = tile_prep(vals, bounds, positions=(scheme == "rpe"))
-        if pre is None:
-            pre = scatter_prep(vals, bounds, positions=(scheme == "rpe"), ng_local=ng_l)
         df = local(dict(p), {}, repl={})
-        df.sharded = pre
+        df.sharded = run_tables(vals, bounds, positions=(scheme == "rpe"))
         return df
     if scheme == "bitmap":
         d = p["d"]
         bitmaps = st["bitmaps"].reshape(d, ng, LANES)
         return local(dict(p), {"bitmaps": bitmaps}, repl={"values": st["values"]}, bitmap_axis1=True)
     if scheme == "dzbv":
-        # Preferred: the single-pass tile form, then the group-row form
-        # (kernels/dzbv.py) — every stream is per-group either way, so
-        # standard group sharding applies.
-        from .kernels.dzbv import group_prep, tile_prep
-
-        pre = tile_prep(col)
-        if pre is None:
-            pre = group_prep(col)
-        if pre is not None:
-            return local(dict(p), pre)
-        # Pathological group skew (PAD_CAP exceeded): fall back to the
-        # two-pass XLA decode; plane data is not group-aligned with the
-        # column (plane k holds bytes only for elements with width > k), so
-        # each shard's plane slice is re-packed into its own LMP groups
-        # host-side; per-shard plane lengths are equalized by zero-padding
-        # (decode's rank gather never reads past the shard's real count, so
-        # padding is inert).
+        # Plane data is not group-aligned with the column (plane k holds
+        # bytes only for elements with width > k), so each shard's plane
+        # slice is re-packed into its own LMP groups host-side; per-shard
+        # plane lengths are equalized by zero-padding (decode's rank gather
+        # never reads past the shard's real count, so padding is inert).
         from .ref.lmp import lmp_pack, lmp_unpack
 
         # unpack only the ng real groups, then pad (reading ng_pad groups
@@ -261,9 +244,9 @@ def _mesh_key(mesh: Mesh, axis) -> tuple:
 
 def _df_signature(df: DistForm) -> tuple:
     """Everything the jitted decoder's *structure* depends on. dist_form can
-    change shape with stream CONTENTS for the same static_key (e.g. rle's
-    tile-chain -> scatter fallback under pathological run density), so the
-    fn cache verifies this signature instead of trusting static_key alone."""
+    change stream shapes with stream CONTENTS for the same static_key
+    (e.g. dzbv's per-shard plane lengths), so the fn cache verifies this
+    signature instead of trusting static_key alone."""
     import json
 
     return (

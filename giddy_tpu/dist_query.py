@@ -2,12 +2,12 @@
 
 Extends the new-scope multi-host dimension (SURVEY.md §3.11, CS-5) from
 plain decode to the DBMS scan pipeline: each shard decodes its group range
-with the same Pallas decoder `dist.py` uses and folds it locally into
+with the same decoder `dist.py` uses and folds it locally into
 1-bit match words or per-(group, lane) aggregate partials; GSPMD keeps
 every fold shard-local because all reductions run along the unsharded
 slot axis. The only cross-shard traffic is the final O(ng x 128)-word
 result (host gather, or one all-reduce for scalar counts) — steady-state
-scan bytes never cross ICI/DCN, preserving the linear-scaling story.
+scan bytes never cross NVLink or the network, preserving the linear-scaling story.
 
 Pad positions (the ragged tail AND the whole groups added to round ng up
 to the shard count) are masked inside the fold via a global position

@@ -1,6 +1,6 @@
 """Column metadata + container format (FORMAT.md §2).
 
-TPU-native analog of libgiddy's kernel-wrapper argument marshalling: where
+Analog of libgiddy's kernel-wrapper argument marshalling: where
 the reference passes a type-erased map of device pointers + scalars into
 ``enqueue_launch`` (upstream ``src/kernel_wrappers/`` per SURVEY.md §3.8),
 we carry a self-describing :class:`EncodedColumn` — static metadata

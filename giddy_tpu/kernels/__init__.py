@@ -1,4 +1,4 @@
-"""Pallas/XLA device decoders — the hot path (SURVEY.md §3.1, call stack CS-2).
+"""Device decoders (plain jitted XLA programs) — the hot path (SURVEY.md §3.1, call stack CS-2).
 
 Importing this package installs a device decoder for every registered
 scheme (the analog of linking libgiddy's kernel-wrapper TUs: import =

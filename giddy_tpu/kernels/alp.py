@@ -1,18 +1,17 @@
-"""ALP decimal-float decode — Pallas decoder (FORMAT.md §1.16).
+"""ALP decimal-float decode — device decoder (FORMAT.md §1.16).
 
 One pass, FOR-shaped (like kernels/for_.py): per-GROUP refs ride as a
-(rows, 1) block, the int reconstruction + float multiply + ulp correction
+(ng, 1) column, the int reconstruction + float multiply + ulp correction
 fuse into the unpack epilogue (the correction stream unpacks slot-in-step
 with the offsets), exceptions scatter after (XLA aliases the update in
-place, same as kernels/patch.py — the traffic audit shows temp == 0).
+place, same as kernels/patch.py).
 
 Cross-platform bit-exactness is by construction (see ref/alp.py): the
 only float ops are an int32→f32 convert and one f32 multiply — single
-correctly-rounded IEEE ops on both NumPy and the VPU — and everything
-else is uint32 wrap arithmetic. (TPU f32 *division* is reciprocal-based
-and not correctly rounded — measured one-ulp disagreements on hardware —
-which is why the format carries the correction stream instead of decoding
-with a divide.)
+correctly-rounded IEEE ops on NumPy and on the device — and everything
+else is uint32 wrap arithmetic. Device f32 division need not be correctly
+rounded, which is why the format carries the correction stream instead of
+decoding with a divide.
 """
 
 from __future__ import annotations
@@ -23,9 +22,8 @@ import numpy as np
 
 from .. import registry
 from ..format import EncodedColumn
-from ..util import GROUP, LANES, num_groups
-from .common import row_blocked_call
-from .lanes import unpack_map_to, unpack_slot, unzigzag
+from ..util import GROUP, num_groups
+from .lanes import unpack_map, unpack_slot, unzigzag
 
 
 def prep(col: EncodedColumn) -> dict:
@@ -43,14 +41,11 @@ def build(col: EncodedColumn):
     e = col.params["exp_e"]
     count = col.params["count"]
     ng = num_groups(col.n)
+    scale = np.float32(10.0**-e)
 
-    def kernel(in_ref, corr_ref, ref_ref, out_ref):
-        rows = ref_ref.shape[0]
-        ref = jnp.broadcast_to(ref_ref[:], (rows, LANES))
-        xc = corr_ref[:]
-        # built inside the kernel: an outer jnp scalar is a traced-constant
-        # capture, which pallas_call rejects
-        scale = jnp.float32(10.0**-e)
+    def decode(streams):
+        ref = streams["refs_g"]
+        xc = streams["corr"]
 
         def epi(v, i):
             enc = jax.lax.bitcast_convert_type(v + ref, jnp.int32)
@@ -58,14 +53,7 @@ def build(col: EncodedColumn):
             corr = unzigzag(unpack_slot(xc, corr_bits, i))
             return jax.lax.bitcast_convert_type(m, jnp.uint32) + corr
 
-        unpack_map_to(out_ref, in_ref[:], bits, epi)
-
-    call = row_blocked_call(
-        kernel, ng=ng, in_widths=[bits * LANES, corr_bits * LANES, 1]
-    )
-
-    def decode(streams):
-        u = call(streams["packed"], streams["corr"], streams["refs_g"]).reshape(ng * GROUP)
+        u = unpack_map(streams["packed"], bits, epi).reshape(ng * GROUP)
         if count:
             pos = streams["patch_pos"].astype(jnp.int32)
             u = u.at[pos].set(streams["patch_val"])

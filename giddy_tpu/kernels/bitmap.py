@@ -1,24 +1,19 @@
-"""Incidence bitmaps — Pallas decoder (FORMAT.md §1.8).
+"""Incidence bitmaps — device decoder (FORMAT.md §1.8).
 
-One pass per block: a static (unrolled) loop over the d bitmaps
-accumulates value[d] · bit_d — the reference's iterate-bitmaps/ballot loop
-(libgiddy ``incidence_bitmaps.cuh``, SURVEY.md §3.1) as d 1-bit LMP unpacks
-+ multiply-adds on the VPU. d is small by the scheme's nature (very low
-cardinality columns), so the unroll is cheap and the whole bitmap block
-(d × LANES words per group-row) fits VMEM comfortably.
+A static (unrolled) loop over the d bitmaps accumulates value[d] · bit_d —
+the reference's iterate-bitmaps/ballot loop (libgiddy
+``incidence_bitmaps.cuh``, SURVEY.md §3.1) as d 1-bit LMP unpacks +
+multiply-adds. d is small by the scheme's nature (very low cardinality
+columns), so the unroll is cheap.
 """
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
 
 from .. import registry
 from ..format import EncodedColumn
-from ..registry import plan
 from ..util import GROUP, LANES, num_groups
-from .common import block_spec, smem_spec, use_interpret
 from .lanes import unpack_lanes
 
 
@@ -27,55 +22,15 @@ def build(col: EncodedColumn, out_store=None):
     ng = num_groups(col.n)
     out_dt = out_store or jnp.uint32
     if d == 0:  # empty column
-        return lambda streams: jnp.zeros((ng * GROUP,), jnp.uint32)
-    if d > 64:
-        # High cardinality: the whole d-plane block would not fit VMEM at
-        # the minimum 8-row tile; accumulate in XLA instead (still pure
-        # vector ops via the same unpack_lanes helper).
-        def decode_xla(streams):
-            bitmaps = streams["bitmaps"].reshape(d, ng, LANES)
-            values = streams["values"].reshape(d)
-            acc = unpack_lanes(bitmaps[0], 1) * values[0]
-            for dd in range(1, d):
-                acc += unpack_lanes(bitmaps[dd], 1) * values[dd]
-            return acc.reshape(ng * GROUP)
-
-        return decode_xla
-    from .common import narrow_geom, store
-
-    bpg = 2 * 4 * (d * LANES + GROUP)
-    pl_plan = plan(ng * GROUP, bpg)
-    geom = narrow_geom(GROUP, jnp.dtype(out_dt).itemsize)
-    r = pl_plan.groups_per_block
-
-    def kernel(bm_ref, val_ref, out_ref):
-        acc = unpack_lanes(bm_ref[0], 1) * val_ref[0, 0]
-        for dd in range(1, d):
-            acc += unpack_lanes(bm_ref[dd], 1) * val_ref[0, dd]
-        store(out_ref, acc)
-
-    if geom:
-        out_specs = block_spec((r, *geom), lambda i: (i, 0, 0))
-        out_shape = jax.ShapeDtypeStruct((ng, *geom), out_dt)
-    else:
-        out_specs = block_spec((r, GROUP), lambda i: (i, 0))
-        out_shape = jax.ShapeDtypeStruct((ng, GROUP), out_dt)
-    call = pl.pallas_call(
-        kernel,
-        grid=(pl_plan.grid,),
-        in_specs=[
-            block_spec((d, r, LANES), lambda i: (0, i, 0)),
-            smem_spec((1, d), lambda i: (0, 0)),
-        ],
-        out_specs=out_specs,
-        out_shape=out_shape,
-        interpret=use_interpret(),
-    )
+        return lambda streams: jnp.zeros((ng * GROUP,), out_dt)
 
     def decode(streams):
         bitmaps = streams["bitmaps"].reshape(d, ng, LANES)
-        values = streams["values"].reshape(1, d)
-        return call(bitmaps, values).reshape(ng * GROUP)
+        values = streams["values"].reshape(d)
+        acc = unpack_lanes(bitmaps[0], 1) * values[0]
+        for dd in range(1, d):
+            acc += unpack_lanes(bitmaps[dd], 1) * values[dd]
+        return acc.astype(out_dt).reshape(ng * GROUP)
 
     return decode
 

@@ -1,60 +1,32 @@
 """Cascade — device decoder (FORMAT.md §1.14).
 
-Decode = the inner scheme's registered Pallas decoder on the ``c_``-prefixed
-code streams, with the dictionary gather **fused into the inner kernel**
-when the dictionary fits the VMEM LUT budget (``_lut_d_pad`` param → the
-inner builder maps its output tile through :func:`lanes.gather_lut` before
-the store) — the RLE_DICTIONARY combo decodes in one single HBM pass.
-Larger dictionaries (or the ``raw`` inner) fall back to an XLA ``take``
-after the inner decode. The inner builder is metadata-only, so any
-registered inner scheme composes without new kernel code — the device
+Decode = the inner scheme's registered decoder on the ``c_``-prefixed code
+streams, then the dictionary take (kernels/dict_.py) — XLA may fuse the
+gather into the inner decode. The inner builder is metadata-only, so any
+registered inner scheme composes without new decoder code — the device
 analog of the reference composing schemes in the caller (SURVEY.md §3.2
 compressed-indices patching is the same pattern).
 """
 
 from __future__ import annotations
 
-import jax.numpy as jnp
-
 from .. import registry
 from ..format import EncodedColumn
 from ..ref.cascade import codes_column
-from ..util import round_up
-from .dict_ import _pad_table, use_lut
-from .lanes import LUT_LANE
-
-# inner schemes whose builders accept the fused ``_lut_d_pad`` stage
-_LUT_INNER = ("rle", "rpe", "delta", "delta2", "nbit", "for", "dzbf")
+from .dict_ import take_values
 
 
 def build(col: EncodedColumn, out_store=None):
     d = col.params["dict_size"]
     inner = codes_column(col, streams={})
-    fused = use_lut(d) and inner.scheme in _LUT_INNER
-    if fused:
-        inner.params = dict(inner.params, _lut_d_pad=round_up(d, LUT_LANE))
-    inner_builder = registry.get(inner.scheme).decode_device
-    if fused and out_store is not None:
-        # the inner kernel stages full-width codes and stores the gathered
-        # values at storage width (row_blocked_call's narrow lut scratch)
-        inner_decode = inner_builder(inner, out_store=out_store)
-    else:
-        inner_decode = inner_builder(inner)
+    inner_decode = registry.get(inner.scheme).decode_device(inner)
 
     def decode(streams):
         c_streams = {k[2:]: v for k, v in streams.items() if k.startswith("c_")}
-        if fused:
-            c_streams["_lut"], _ = _pad_table(streams["values"], d)
-            return inner_decode(c_streams)
         codes = inner_decode(c_streams)
         if d == 0:  # empty column: nothing to gather (pad codes pass through)
             return codes
-        values = streams["values"]
-        if out_store is not None:  # narrow the table so the take WRITES narrow
-            values = values.astype(out_store)
-        # unsigned codes index the take directly (kernels/dict_.py: an
-        # int32 astype materializes a 4 B/elem index temp on chip)
-        return jnp.take(values, codes, axis=0)
+        return take_values(streams["values"], codes, out_store)
 
     return decode
 

@@ -1,239 +1,15 @@
-"""Plumbing shared by all device decoders: interpret-mode fallback, block
-spec construction, and the decoder build/cache protocol the registry calls.
+"""Plumbing shared by all device decoders: host streams -> device arrays.
 
-Launch-config resolution (the analog of libgiddy's
-``resolve_launch_configuration``, SURVEY.md §3.8) lives in
-:func:`giddy_tpu.registry.plan`; here we turn a Plan into Pallas specs.
+Every decoder is a plain jitted ``jax.numpy``/``lax`` program over whole
+``(ng, width)`` group-major arrays; XLA fuses unpack, epilogue and store
+into one pass (docs/DESIGN.md §3).
 """
 
 from __future__ import annotations
 
-import contextlib
-import functools
-
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-from ..registry import Plan, plan
-from ..util import GROUP
-
-
-_FORCE_COMPILED_TRACE = False  # see force_compiled_trace()
-
-
-def use_interpret() -> bool:
-    """Pallas Mosaic kernels need a real TPU; on CPU (tests, the virtual
-    8-device mesh) run the same kernels in interpreter mode (the reference's
-    'sanitizer' analog too — SURVEY.md §6)."""
-    if _FORCE_COMPILED_TRACE:
-        return False
-    return _backend_interpret()
-
-
-@functools.cache
-def _backend_interpret() -> bool:
-    return jax.default_backend() != "tpu"
-
-
-@contextlib.contextmanager
-def force_compiled_trace():
-    """Compiled-path override for CENSUS builds: decoders constructed under
-    this context take their compiled (Mosaic) structure regardless of
-    backend, so the ops census (roofline.ops_audit) sees the real kernel —
-    MXU matmul scans, roll networks, gather chains — on the CPU backend too.
-
-    Contract (ADVICE r4): a ``pallas_call`` built under this context must
-    only ever be TRACED (jax.make_jaxpr) — executing it off-TPU would hand
-    Mosaic kernels to an XLA:CPU lowering. Helpers that sit OUTSIDE any
-    pallas_call (the lanes.py scan/roll building blocks) may additionally
-    be EXECUTED off-TPU under this context when every primitive they use
-    has an XLA lowering on the host backend — tests/test_mxu_scan.py relies
-    on that to unit-test the scan algorithms on CPU (pltpu.roll and int8
-    dots lower fine there). Callers must also bypass the api decoder cache
-    (api.get_decoder), which must never hold a Mosaic-path decoder on a CPU
-    backend. Audits run single-threaded (the suite's xdist parallelism is
-    per-process), so a module global is safe here."""
-    global _FORCE_COMPILED_TRACE
-    prev = _FORCE_COMPILED_TRACE
-    _FORCE_COMPILED_TRACE = True
-    try:
-        yield
-    finally:
-        _FORCE_COMPILED_TRACE = prev
-
-
-def vmem():
-    return pltpu.VMEM if not use_interpret() else None
-
-
-def block_spec(block_shape, index_map):
-    if use_interpret():
-        return pl.BlockSpec(block_shape, index_map)
-    return pl.BlockSpec(block_shape, index_map, memory_space=pltpu.VMEM)
-
-
-def smem_spec(block_shape, index_map):
-    """Scalar side-channel block (frame refs, dict sizes, per-step values)."""
-    if use_interpret():
-        return pl.BlockSpec(block_shape, index_map)
-    return pl.BlockSpec(block_shape, index_map, memory_space=pltpu.SMEM)
-
-
-def store(out_ref, v) -> None:
-    """Final store, narrowing to the output block's dtype when the decode
-    was built with a storage-width ``out_store`` (int8/int16 columns write
-    1/4 or 1/2 the HBM bytes; truncation == the format's zero-extension
-    inverse, util.u32_to_dtype).
-
-    Narrow out blocks are 3D ``(r, sub, w2)`` (see :func:`narrow_geom`):
-    the (r, width) value folds its minor dim into sublane rows first — the
-    same minor-split reshape the MXU scan already lowers (lanes._mxu_cumsum
-    reshapes (rows, width) -> (rows*nt, 128) in-kernel)."""
-    if v.shape != out_ref.shape:
-        v = v.reshape(out_ref.shape)
-    out_ref[:] = v if v.dtype == out_ref.dtype else v.astype(out_ref.dtype)
-
-
-# Mosaic sublane-tile minimum per output itemsize: narrow stores need the
-# block's row dim divisible by the dtype's sublane tile (int8 packs 32
-# sublanes per vreg, 16-bit packs 16) unless the block covers the array.
-_SUBLANE_TILE = {1: 32, 2: 16, 4: 8}
-
-
-def narrow_geom(out_width: int, itemsize: int):
-    """3D narrow-store block geometry ``(sub, w2)`` or None.
-
-    A 2D narrow out block (r, width) forces ``r % sub == 0``, and aligning
-    r multiplies the whole block working set — VMEM-infeasible for the
-    scan-bearing schemes at GROUP width (the round-5 selftest-at-2^22
-    lesson: delta declined its int16 store at ng=129). Declaring the SAME
-    bytes as (r, sub, w2 = width/sub) puts the sublane tile in the block's
-    own middle dim, so ANY r satisfies Mosaic's tiling; the kernel-side
-    cost is one minor-split reshape at store time (a lowering
-    lanes._mxu_cumsum already exercises every call). Requires the split
-    row to hold whole lane tiles — and whole LMP slots for the unpack_to
-    writers — i.e. ``w2 % LANES == 0`` (GROUP widths always qualify:
-    u8 -> (32, 1024), u16 -> (16, 2048))."""
-    if itemsize >= 4:
-        return None
-    from ..util import LANES
-
-    sub = _SUBLANE_TILE[itemsize]
-    w2, rem = divmod(out_width, sub)
-    if rem or w2 % LANES:
-        return None
-    return sub, w2
-
-
-def resolve_narrow(pl_plan: Plan, itemsize: int, bytes_per_group: int):
-    """(plan, accepted): align the plan's row count to the narrow dtype's
-    sublane tile, DECLINING the narrow store (accepted=False) when the
-    alignment would inflate the block working set past the VMEM budget —
-    bumping 8 -> 32 rows quadruples the block, and an over-budget plan is
-    a hardware-compile OOM the CPU interpreter never sees (the
-    kernels/rle.py lesson). Callers fall back to the uint32 store; the
-    dtype-driven api._to_logical absorbs either output width, so declining
-    is always safe. The decline only costs the output-write saving, which
-    is small exactly when the rest of the working set dominates."""
-    sub = _SUBLANE_TILE[itemsize]
-    if pl_plan.grid == 1 or pl_plan.groups_per_block % sub == 0:
-        return pl_plan, True
-    from ..registry import _VMEM_BUDGET
-    from ..util import cdiv
-
-    ng = pl_plan.n_groups
-    if ng <= sub:
-        # whole-array single block (no double buffering, so halve the
-        # per-group figure) — but only while it actually fits
-        if ng * bytes_per_group // 2 <= _VMEM_BUDGET:
-            return Plan(n_groups=ng, groups_per_block=ng, grid=1), True
-        return pl_plan, False
-    if sub * bytes_per_group > _VMEM_BUDGET:
-        return pl_plan, False
-    return Plan(n_groups=ng, groups_per_block=sub, grid=cdiv(ng, sub)), True
-
-
-def row_blocked_call(kernel, *, ng: int, in_widths: list[int], out_width: int = GROUP, extra_bytes_per_group: int = 0, out_dtype=jnp.uint32, pl_plan: Plan | None = None, lut_d_pad: int | None = None):
-    """Build a pallas_call over row-blocked (group-major) streams.
-
-    Every stream is a (ng, width) array; the grid tiles rows (groups) with
-    ``groups_per_block`` rows per step. Double-buffered in+out bytes per
-    group drive the plan.
-
-    ``lut_d_pad``: when set, the kernel's output tile is additionally mapped
-    through an in-VMEM dictionary gather (:func:`lanes.gather_lut`) before
-    the store — the fused dictionary stage of dict/cascade decode (SURVEY.md
-    §3.1 DICT row's shared-memory staging). The returned callable then takes
-    the (1-or-r, lut_d_pad) uint32 table as its FIRST argument; the table
-    block has a constant index, so Pallas DMAs it into VMEM once.
-
-    ``out_dtype``: uint32 (the payload contract) or a narrow unsigned dtype
-    for storage-width materialization. With ``lut_d_pad`` AND a narrow
-    out_dtype the kernel's codes must keep full width until the gather, so
-    they stage through a VMEM scratch block instead of the output ref.
-    """
-    itemsize = jnp.dtype(out_dtype).itemsize
-    bytes_per_group = 2 * (4 * sum(in_widths) + itemsize * out_width) + extra_bytes_per_group
-    if lut_d_pad:
-        bytes_per_group += 4 * lut_d_pad  # row-tiled table VMEM cost
-        if itemsize < 4:
-            bytes_per_group += 4 * out_width  # the u32 codes scratch below
-    if pl_plan is None:
-        pl_plan = plan(ng * GROUP, bytes_per_group)
-    geom = narrow_geom(out_width, itemsize)
-    if itemsize < 4 and geom is None:
-        # width doesn't split into whole slots: fall back to row alignment
-        pl_plan, accepted = resolve_narrow(pl_plan, itemsize, bytes_per_group)
-        if not accepted:
-            out_dtype, itemsize = jnp.uint32, 4
-    r = pl_plan.groups_per_block
-    in_specs = [block_spec((r, w), lambda i: (i, 0)) for w in in_widths]
-    body = kernel
-    scratch_shapes = []
-    if lut_d_pad:
-        from .lanes import gather_lut
-
-        if itemsize < 4:
-            scratch_shapes = [pltpu.VMEM((r, out_width), jnp.uint32)]
-
-            def body(dic_ref, *refs):
-                codes_ref, out_ref = refs[-1], refs[-2]
-                kernel(*refs[:-2], codes_ref)
-                store(out_ref, gather_lut(dic_ref[:], codes_ref[:]))
-
-        else:
-
-            def body(dic_ref, *refs):
-                kernel(*refs)
-                out_ref = refs[-1]
-                out_ref[:] = gather_lut(dic_ref[:], out_ref[:])
-
-        in_specs = [block_spec((r, lut_d_pad), lambda i: (0, 0))] + in_specs
-    if itemsize < 4 and geom is not None:
-        sub, w2 = geom
-        out_specs = block_spec((r, sub, w2), lambda i: (i, 0, 0))
-        out_shape = jax.ShapeDtypeStruct((ng, sub, w2), out_dtype)
-    else:
-        out_specs = block_spec((r, out_width), lambda i: (i, 0))
-        out_shape = jax.ShapeDtypeStruct((ng, out_width), out_dtype)
-    call = pl.pallas_call(
-        body,
-        grid=(pl_plan.grid,),
-        in_specs=in_specs,
-        out_specs=out_specs,
-        out_shape=out_shape,
-        scratch_shapes=scratch_shapes,
-        interpret=use_interpret(),
-    )
-    if lut_d_pad:
-        def with_table(table, *streams):
-            return call(jnp.broadcast_to(table, (r, lut_d_pad)), *streams)
-
-        return with_table
-    return call
 
 
 def to_device_streams(streams: dict[str, np.ndarray]) -> dict[str, jax.Array]:

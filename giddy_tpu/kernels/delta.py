@@ -1,46 +1,30 @@
-"""Delta — Pallas decoder (FORMAT.md §1.3; BASELINE configs[1]).
+"""Delta — device decoder (FORMAT.md §1.3; BASELINE configs[1]).
 
 The reference's warp/block inclusive scan (libgiddy ``delta.cuh`` +
-``primitives/warp.cuh``, SURVEY.md CS-2 hot loop) becomes one tile-local
-cumsum: the per-group anchor side stream removes every cross-tile carry, so
-grid steps (and chips) never synchronize.
+``primitives/warp.cuh``, SURVEY.md CS-2 hot loop) becomes one per-group
+cumsum: the per-group anchor side stream removes every cross-group carry,
+so groups (and devices) never synchronize.
 """
 
 from __future__ import annotations
 
+import jax.numpy as jnp
+
 from .. import registry
 from ..format import EncodedColumn
-from ..util import LANES, GROUP, num_groups
-from .common import row_blocked_call, store
-from .lanes import scan_scratch_bytes, signed_cumsum, unpack_lanes, unzigzag
+from ..util import GROUP, num_groups
+from .lanes import group_cumsum, unpack_lanes, unzigzag
 
 
 def build(col: EncodedColumn, out_store=None):
     bits = col.params["bits"]
     ng = num_groups(col.n)
-    lut = col.params.get("_lut_d_pad")  # cascade's fused dictionary stage
-
-    def kernel(in_ref, anchor_ref, out_ref):
-        d = unzigzag(unpack_lanes(in_ref[:], bits))
-        # deltas are <bits>-wide: signed_cumsum scans only ceil(bits/8)
-        # byte planes (one small-path matmul for the common bits<=7 case)
-        store(out_ref, signed_cumsum(d, bits) + anchor_ref[:])
-
-    import jax.numpy as jnp
-
-    call = row_blocked_call(
-        kernel,
-        ng=ng,
-        in_widths=[bits * LANES, 1],
-        extra_bytes_per_group=scan_scratch_bytes(),
-        lut_d_pad=lut,
-        out_dtype=out_store or jnp.uint32,
-    )
+    out_dt = out_store or jnp.uint32
 
     def decode(streams):
-        args = (streams["_lut"],) if lut else ()
-        anchors = streams["anchors"].reshape(ng, 1)
-        return call(*args, streams["packed"], anchors).reshape(ng * GROUP)
+        d = unzigzag(unpack_lanes(streams["packed"], bits))
+        u = group_cumsum(d) + streams["anchors"].reshape(ng, 1)
+        return u.astype(out_dt).reshape(ng * GROUP)
 
     return decode
 

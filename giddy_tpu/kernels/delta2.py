@@ -1,10 +1,9 @@
-"""Delta-of-delta — Pallas decoder (FORMAT.md §1.17; beyond-parity scheme).
+"""Delta-of-delta — device decoder (FORMAT.md §1.17; beyond-parity scheme).
 
-The delta kernel (libgiddy ``delta.cuh`` re-think, kernels/delta.py) run to
-second order: unpack, two tile-local cumsums (both ride the MXU byte-plane
-matmul scan — lanes.group_cumsum), then the affine anchor+slope epilogue.
-The per-group (anchor, slope) pair removes every cross-tile carry, so grid
-steps and mesh shards stay independent exactly like delta.
+The delta decoder (libgiddy ``delta.cuh`` re-think, kernels/delta.py) run to
+second order: unpack, two per-group cumsums, then the affine anchor+slope
+epilogue. The per-group (anchor, slope) pair removes every cross-group
+carry, so groups and mesh shards stay independent exactly like delta.
 """
 
 from __future__ import annotations
@@ -13,45 +12,23 @@ import jax.numpy as jnp
 
 from .. import registry
 from ..format import EncodedColumn
-from ..util import GROUP, LANES, num_groups
-from .common import row_blocked_call, store
-from .lanes import (
-    linear_iota,
-    scan_scratch_bytes,
-    signed_double_cumsum,
-    unpack_lanes,
-    unzigzag,
-)
+from ..util import GROUP, num_groups
+from .lanes import group_cumsum, linear_iota, unpack_lanes, unzigzag
 
 
 def build(col: EncodedColumn, out_store=None):
     bits = col.params["bits"]
     ng = num_groups(col.n)
-    lut = col.params.get("_lut_d_pad")  # cascade's fused dictionary stage
-
-    def kernel(in_ref, anchor_ref, slope_ref, out_ref):
-        s = unzigzag(unpack_lanes(in_ref[:], bits))
-        # closed-form double prefix (round 4): one bf16 ramp-matmul per
-        # byte plane of the BIASED second differences replaces the
-        # narrow scan + full-width 4-plane scan pair
-        cc = signed_double_cumsum(s, bits)
-        pos1 = linear_iota(out_ref.shape[0]) + jnp.uint32(1)
-        store(out_ref, anchor_ref[:] + slope_ref[:] * pos1 + cc)
-
-    call = row_blocked_call(
-        kernel,
-        ng=ng,
-        in_widths=[bits * LANES, 1, 1],
-        extra_bytes_per_group=2 * scan_scratch_bytes(),
-        lut_d_pad=lut,
-        out_dtype=out_store or jnp.uint32,
-    )
+    out_dt = out_store or jnp.uint32
 
     def decode(streams):
-        args = (streams["_lut"],) if lut else ()
+        s = unzigzag(unpack_lanes(streams["packed"], bits))
+        cc = group_cumsum(group_cumsum(s))
+        pos1 = linear_iota(ng) + jnp.uint32(1)
         anchors = streams["anchors"].reshape(ng, 1)
         slopes = streams["slopes"].reshape(ng, 1)
-        return call(*args, streams["packed"], anchors, slopes).reshape(ng * GROUP)
+        u = anchors + slopes * pos1 + cc
+        return u.astype(out_dt).reshape(ng * GROUP)
 
     return decode
 

@@ -1,569 +1,52 @@
 """Discard zero bytes, variable — device decoder (FORMAT.md §1.10).
 
-Three prep-time layouts, best-first (the on-disk format — compacted byte
-planes — is unchanged; layout is a load-time re-anchoring):
-
-1. **Tile layout** (round 5, the default): each byte plane is re-compacted
-   per 128-LANE TILE with a column-global stride ``s`` (any multiple of 8
-   up to 128). Ranks then never cross a tile boundary, so plane bytes
-   align to their elements with ONE in-tile dynamic gather per plane
-   (Mosaic ``take_along_axis`` — the same primitive the fused dictionary
-   chain hardware-proves every round; two gathers + a select on the
-   minority of tiles whose source window straddles a 128-lane boundary),
-   replacing the round-2 15-step conditional-roll expand network. The rank
-   scans drop their cross-tile carry too
-   (:func:`..kernels.lanes.tile_cumsum`). Census effect: ~187 -> ~35 VPU
-   ops/element (VERDICT r4 missing #2 / next #1).
-2. **Group-row layout** (round 2): planes front-compacted per GROUP, the
-   conditional-roll expand network aligns them. Kept for columns whose
-   sub-group width burstiness blows the tile layout's padding cap but
-   whose per-group totals are still even.
-3. **Two-pass XLA fallback** (global rank cumsum + ``jnp.take``) for
-   pathological group skew — an audited, documented losing regime.
-
-Each compacted layout quantizes plane storage (to ``s`` bytes per tile /
-4*LANES bytes per group row); prep falls through to the next layout when
-the quantization padding would inflate HBM traffic by more than ~15% of
-the decoded bytes.
+Two passes over the container's own compacted byte planes: for each plane
+k, the rank of every element among those wider than k (a per-group cumsum
+plus the groups' running offsets), then one gather of the plane byte. The
+planes need no host re-layout. Measured on an H100 against a per-128-lane
+tile re-layout of the planes (CHANGES.md, PR 1): the two-pass form was the
+faster of the two on the device as well.
 
 Upstream analog: libgiddy
 ``src/kernels/decompression/discard_zero_bytes_variable.cuh`` (SURVEY.md
 §3.1) decodes varint via per-segment offset anchors + per-thread byte
-loads; byte planes + tile-anchored gathers are the vreg-native equivalent
-(no per-element addressing at all).
+loads; byte planes + a rank scan replace the per-element addressing.
 """
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
-import numpy as np
 
 from .. import registry
 from ..format import EncodedColumn
-from ..ref.lmp import lmp_pack, lmp_unpack
-from ..util import GROUP, LANES, cdiv, num_groups
-from .common import row_blocked_call
-from .lanes import (
-    expand_monotone,
-    group_cumsum,
-    tile_cumsum,
-    unpack_lanes,
-    unpack_to,
-)
-
-# Prep falls back to the next layout when storage quantization would add
-# more than this fraction of the decoded bytes in extra HBM traffic.
-PAD_CAP = 0.15
-
-TILE = 128  # Mosaic dynamic-gather exactness window (lanes.LUT_LANE)
-TPG = GROUP // TILE  # tiles per group row
-# Per-tile byte strides are any multiple of 8 in [8, 128]: whole packed
-# words + T8 layout granularity, fine enough that stride rounding wastes
-# < 8 bytes/tile beyond the per-tile max count itself (power-of-two-only
-# strides waste up to ~50% on mid-density planes — measured 25% on the
-# datagen column, over PAD_CAP). Non-divisor strides make some dest tiles'
-# source windows straddle a 128-lane boundary; the kernel pays one extra
-# gather + select on exactly those chunks (see _tile_pass_call).
-STRIDE_Q = 8
-_DIVISORS = (8, 16, 32, 64, 128)
-# Per-element cost model for the stride choice (round 5): shared kernel
-# overhead, per-plane unpack/rank/gather/fold, the extra gather+clamp+
-# select on straddling chunks, and the op-equivalent price of one stored
-# byte (VPU_rate / HBM_BW on a v5e — kernels/rle.py OPS_PER_BYTE
-# rationale). BASE/PLANE are calibrated to the measured ops census
-# (results_rounds/r5/regime_census.json: ~14 shared + ~13/plane).
-_OPS_BASE = 14.0
-_OPS_PLANE = 13.0
-_OPS_STRADDLE = 4.0
-_KAPPA = 4.6
-
-
-def _stride_for(max_cnt: int) -> int:
-    # per-tile count is <= 128 by definition
-    return min(cdiv(max(max_cnt, 1), STRIDE_Q) * STRIDE_Q, TILE)
-
-
-def _straddle_frac(s: int) -> float:
-    """Fraction of dest tiles whose source window straddles a 128-lane
-    boundary at stride ``s`` (0 for divisors of 128)."""
-    import math
-
-    mP = TILE // math.gcd(TILE, s)
-    nP = mP * s // TILE
-    return (nP - 1) / mP
-
-
-def choose_strides(
-    max_cnts: dict[int, int], means: dict[int, float] | None = None
-) -> dict[int, int]:
-    """Per-plane stride selection minimizing the column's estimated
-    ``max(compute_ops, stored_bytes * KAPPA)`` per element — the real
-    objective for a kernel that may sit on either side of the roofline.
-    Candidates per plane: the TIGHT stride (multiple of 8 >= max count:
-    least padding, but non-divisor strides pay a second gather + select on
-    straddling chunks) and the next DIVISOR of 128 (zero straddle cost,
-    more padding). While the decode is compute-dominated the divisor's
-    extra bytes ride for free, so it usually wins; byte-tight columns keep
-    the tight strides. ``means`` (mean plane bytes/element) additionally
-    enforces the single-pass traffic bound the selftest asserts: stored
-    traffic stays <= 1.12x of the compressed+decoded ideal, whatever the
-    compute score says. 2^planes <= 8 combos, enumerated exactly."""
-    import itertools
-
-    planes = sorted(max_cnts)
-    cands = []
-    for k in planes:
-        mx = max(int(max_cnts[k]), 1)
-        tight = _stride_for(mx)
-        div = next(s for s in _DIVISORS if s >= mx)
-        cands.append(sorted({tight, div}))
-    ideal = None
-    if means is not None:
-        ideal = 0.25 + 1.0 + 4.0 + sum(means.get(k, 0.0) for k in planes)
-    best = best_any = None
-    for combo in itertools.product(*cands):
-        ops = _OPS_BASE
-        bytes_pe = 0.25 + 1.0 + 4.0  # widths + plane0 + the decoded write
-        for s in combo:
-            ops += _OPS_PLANE + _OPS_STRADDLE * _straddle_frac(s)
-            bytes_pe += s / TILE
-        score = max(ops, _KAPPA * bytes_pe)
-        if best_any is None or (bytes_pe, score) < best_any[:2]:
-            best_any = (bytes_pe, score, combo)
-        if ideal is not None and bytes_pe > 1.12 * ideal:
-            continue
-        if best is None or score < best[0]:
-            best = (score, combo)
-    combo = best[1] if best is not None else best_any[2]
-    return dict(zip(planes, combo))
-
-
-def tile_prep(col: EncodedColumn, force_s: dict | None = None) -> dict | None:
-    """Re-anchor planes 1..3 per 128-lane tile: ``trow{k}: (ng, 64*s_k)
-    uint32`` word rows in the T8 layout (each 128-word block packs 512
-    consecutive bytes as 4 byte-position chunks of 128 — see
-    :func:`_t8_bytes`), tile t's bytes front-compacted at byte offset
-    ``t*s_k`` with the column-global stride ``s_k``. Returns None when the
-    stride quantization would exceed PAD_CAP.
-
-    ``force_s``: {plane: s} pins strides AND the plane presence set
-    (skipping the cap) — partial.GroupSlicer derives them once from the
-    whole column so every equal-size slice shares one jit specialization.
-    """
-    plane_lens = col.params["plane_lens"]
-    ng = num_groups(col.n)
-    n_pad = ng * GROUP
-    if force_s is not None:
-        present = sorted(force_s)
-    else:
-        present = [k for k in (1, 2, 3) if plane_lens[k] > 0]
-    streams = {"widths": col.streams["widths"], "plane0": col.streams["plane0"]}
-    if not present:
-        return streams
-    w = lmp_unpack(col.streams["widths"], 2, n_pad).astype(np.int32)
-    cnts = {k: (w >= k).reshape(ng * TPG, TILE).sum(axis=1) for k in present}
-    if force_s is not None:
-        strides = force_s
-    else:
-        strides = choose_strides(
-            {k: int(cnts[k].max()) for k in present},
-            {k: float(cnts[k].sum()) / n_pad for k in present},
-        )
-    ragged = 1 if col.n < n_pad else 0  # tail group exempt from the skew
-    # accounting, as in group_prep: its output write is padded anyway
-    if force_s is None:
-        # judge skew from the counts alone BEFORE paying for the re-layout
-        # (the full column-sized scatter below would just be discarded);
-        # the cap judges the layout FAMILY at its least-padded (tight)
-        # strides — a chosen divisor stride's extra padding is a priced-in
-        # compute/bytes trade, not skew
-        full_tiles = (ng - ragged) * TPG
-        total_pad = 0
-        for k in present:
-            cnt = cnts[k]
-            tail_real = int(cnt[full_tiles:].sum())
-            total_pad += full_tiles * _stride_for(int(cnt.max())) - (
-                int(cnt.sum()) - tail_real
-            )
-        if total_pad > PAD_CAP * (ng * GROUP * 4):
-            return None
-    trows = {}
-    for k in present:
-        cnt = cnts[k]
-        total = int(cnt.sum())
-        s = strides[k]
-        assert int(cnt.max()) <= s, (k, int(cnt.max()), s)
-        mat = np.zeros(ng * TPG * s, np.uint32)
-        if total:
-            sel = np.flatnonzero(w >= k)
-            tile_of = sel >> 7
-            excl = np.cumsum(cnt) - cnt
-            r = np.arange(total, dtype=np.int64) - excl[tile_of]
-            # sliced columns quantize plane_lens upward with zero padding,
-            # so trust the widths for the real count (as group_prep does)
-            mat[tile_of * s + r] = lmp_unpack(col.streams[f"plane{k}"], 8, total)
-        m4 = mat.reshape(ng, TPG * s // 512, 4, TILE)
-        words = (
-            m4[:, :, 0]
-            | (m4[:, :, 1] << np.uint32(8))
-            | (m4[:, :, 2] << np.uint32(16))
-            | (m4[:, :, 3] << np.uint32(24))
-        )
-        trows[f"trow{k}"] = np.ascontiguousarray(words.reshape(ng, TPG * s // 4))
-    streams.update(trows)
-    return streams
-
-
-def global_tile_s(tile_counts: dict, *, ragged: bool = False) -> dict | None:
-    """The slice-stable tile strides for :func:`tile_prep(force_s=...)`:
-    {plane: s} from whole-column per-TILE counts {plane: (n_tiles,) array},
-    or None when the whole-column pad would exceed PAD_CAP (the caller then
-    tries the group-row layout). ``ragged``: exempt the final group's
-    tiles from the skew accounting, as tile_prep does — their output write
-    is padded regardless."""
-    live = {k: cnt for k, cnt in tile_counts.items() if int(cnt.sum())}
-    total_pad = 0
-    n_tiles = 0
-    for k, cnt in live.items():
-        n_tiles = cnt.shape[0]
-        full = n_tiles - (TPG if ragged else 0)
-        # cap on the tight strides, as tile_prep does
-        total_pad += full * _stride_for(int(cnt.max())) - int(cnt[:full].sum())
-    if n_tiles and total_pad > PAD_CAP * (n_tiles * TILE * 4):
-        return None
-    return choose_strides(
-        {k: int(cnt.max()) for k, cnt in live.items()},
-        {k: float(cnt.sum()) / (n_tiles * TILE) for k, cnt in live.items()},
-    )
-
-
-def group_prep(col: EncodedColumn, force_w4: dict | None = None) -> dict | None:
-    """Re-anchor planes 1..3 per GROUP: front-compacted byte rows
-    ``prow{k}: (ng, W4_k*LANES) uint32`` (packed 4 bytes/word in LMP slot
-    order, so linear byte m of group g sits at slot m//LANES, lane
-    m%LANES). Returns None when padding would exceed PAD_CAP.
-
-    ``force_w4``: {plane: w4} pins the row widths AND the plane presence
-    set (skipping the cap) — partial.GroupSlicer derives them once from
-    the whole column so every equal-size slice shares one jit
-    specialization and the cap decision is made globally."""
-    plane_lens = col.params["plane_lens"]
-    ng = num_groups(col.n)
-    n_pad = ng * GROUP
-    if force_w4 is not None:
-        present = sorted(force_w4)
-    else:
-        present = [k for k in (1, 2, 3) if plane_lens[k] > 0]
-    streams = {"widths": col.streams["widths"], "plane0": col.streams["plane0"]}
-    if not present:
-        return streams
-    w = lmp_unpack(col.streams["widths"], 2, n_pad).astype(np.int32)
-    prows = {}
-    total_pad = 0
-    ragged = 1 if col.n < n_pad else 0  # the tail group's row is mostly
-    # padding whatever we do (its output write is padded too) — exempt it
-    # from the skew accounting so small columns keep the single-pass path
-    for k in present:
-        cnt = (w >= k).reshape(ng, GROUP).sum(axis=1)
-        # the real byte count; sliced columns (partial.py) quantize
-        # plane_lens upward with zero padding, so trust the widths
-        total = int(cnt.sum())
-        max_cnt = int(cnt.max())
-        w4 = force_w4[k] if force_w4 else max(1, cdiv(cdiv(max_cnt, LANES), 4))
-        assert max_cnt <= w4 * 4 * LANES, (k, max_cnt, w4)
-        full = ng - ragged
-        total_pad += full * w4 * 4 * LANES - (total - int(cnt[-1]) * ragged)
-        off = np.zeros(ng, np.int64)
-        np.cumsum(cnt[:-1], out=off[1:])
-        plane = lmp_unpack(col.streams[f"plane{k}"], 8, total)
-        mat = np.zeros(ng * GROUP, np.uint32)
-        dst = (
-            np.repeat(np.arange(ng, dtype=np.int64) * GROUP, cnt)
-            + np.arange(total, dtype=np.int64)
-            - np.repeat(off, cnt)
-        )
-        mat[dst] = plane
-        prows[f"prow{k}"] = np.ascontiguousarray(
-            lmp_pack(mat, 8)[:, : w4 * LANES]
-        )
-    if force_w4 is None and total_pad > PAD_CAP * (ng * GROUP * 4):
-        # cap vs the padded output write (what the kernel actually emits),
-        # so ragged tails don't force tiny columns onto the fallback
-        return None
-    streams.update(prows)
-    return streams
-
-
-def global_w4(counts: dict) -> dict | None:
-    """The slice-stable row widths for :func:`group_prep(force_w4=...)`:
-    {plane: w4} from whole-column per-group counts {plane: (ng,) array},
-    or None when the whole-column pad would exceed PAD_CAP (the slicer
-    then keeps the two-pass plane form for every slice)."""
-    w4s = {}
-    total_pad = 0
-    ng = 0
-    for k, cnt in counts.items():
-        if int(cnt.sum()) == 0:
-            continue
-        ng = cnt.shape[0]
-        w4s[k] = max(1, cdiv(cdiv(int(cnt.max()), LANES), 4))
-        total_pad += ng * w4s[k] * 4 * LANES - int(cnt.sum())
-    if ng and total_pad > PAD_CAP * (ng * GROUP * 4):
-        return None
-    return w4s
-
-
-def _prep(col: EncodedColumn) -> dict:
-    for k in (1, 2, 3):
-        if f"trow{k}" in col.streams or f"prow{k}" in col.streams:
-            return col.streams  # already in a re-anchored (dist/slice) form
-    pre = tile_prep(col)
-    if pre is None:
-        pre = group_prep(col)
-    return pre if pre is not None else col.streams
-
-
-def _t8_bytes(x, s: int):
-    """(R, 64*s) T8-packed words -> (R, 256*s) uint32 byte values in linear
-    tile-compacted order (byte p = t*s + i of the group row at column p).
-    Every operand is a 128-lane slice + shift/mask — no sub-tile shapes."""
-    chunks = []
-    for q in range(s // 2):
-        wv = x[:, q * TILE : (q + 1) * TILE]
-        for m in range(4):
-            v = wv >> jnp.uint32(8 * m) if m else wv
-            chunks.append(v & jnp.uint32(0xFF) if m < 3 else v)  # byte 3 is clean
-    return jnp.concatenate(chunks, axis=1)
-
-
-def _tile_pass_call(ng: int, ss: dict[int, int], out_store=None):
-    """The round-5 tile-layout decoder: per plane, a tile-local rank scan
-    (no cross-tile carry) + ONE in-tile dynamic gather aligns the
-    compacted bytes to their elements. All reshapes are the proven
-    (R, k*128) <-> (R*k, 128) forms of lanes._mxu_cumsum; the gather is the
-    (rows, 128)-operand ``take_along_axis`` of lanes.gather_lut."""
-    present = sorted(ss)
-    in_widths = [2 * LANES, 8 * LANES] + [TPG * ss[k] // 4 for k in present]
-    # scratch: w, masks, packed scan, per-plane rank/bytes/gathered, out —
-    # ~10 full (r, GROUP) uint32 intermediates + the matmul scan transients
-    from .lanes import scan_scratch_bytes
-
-    scratch = (10 * 4 * GROUP + scan_scratch_bytes()) if present else 0
-
-    def kernel(widths_ref, p0_ref, *refs):
-        out_ref = refs[-1]
-        trow_refs = dict(zip(present, refs[:-1]))
-        if not present:
-            del widths_ref  # widths carry no information when every
-            unpack_to(out_ref, p0_ref[:], 8)  # element is 1 byte wide
-            return
-        w = unpack_lanes(widths_ref[:], 2)  # (r, GROUP), values 0..3
-        out = unpack_lanes(p0_ref[:], 8)
-        r_rows = w.shape[0]
-        mb = {k: w >= jnp.uint32(k) for k in present}  # plane-membership bools
-        # tile-local EXCLUSIVE counts (= in-tile ranks, directly) for every
-        # present plane in ONE packed scan: masks ride byte fields 8*i (tile
-        # counts <= 128 never bleed a byte), the strict-triangle MXU form
-        # makes the exclusive scan free — one matmul pass replaces the
-        # group-row kernel's two scans + identity subtraction.
-        packed = None
-        for i, k in enumerate(present):
-            f = mb[k].astype(jnp.uint32)
-            if i:
-                f = f << jnp.uint32(8 * i)
-            packed = f if packed is None else packed | f
-        excl = tile_cumsum(
-            packed, byte_planes=tuple(range(len(present))), small=True, exclusive=True
-        )
-        excl = jax.lax.bitcast_convert_type(excl, jnp.int32)  # fields < 2**31
-        ranks = {}
-        for i, k in enumerate(present):
-            rk = excl >> jnp.int32(8 * i) if i else excl
-            if i < len(present) - 1:
-                rk = rk & jnp.int32(0xFF)
-            ranks[k] = rk
-        import math
-
-        for k in present:
-            s = ss[k]
-            # super-row structure: mP dest tiles share nP source 128-lane
-            # chunks (B = lcm(s, 128) bytes); dest tile q's window
-            # [q*s, q*s + s) lies in one chunk, or straddles two when s
-            # does not divide 128 — those chunks pay a second gather + a
-            # select, everything else is ONE in-tile gather.
-            mP = TILE // math.gcd(TILE, s)
-            nP = mP * s // TILE
-            rows_sup = r_rows * TPG // mP
-            rank = ranks[k]  # [0, s]: s only on UNSELECTED lanes of a full
-            # tile (the running count); those lanes' gathers are discarded,
-            # but the index must stay in the 128-lane window — chunks whose
-            # window ends exactly at a lane boundary clamp (below)
-            y = _t8_bytes(trow_refs[k][:], s)  # (r, 256*s)
-            src = y.reshape(rows_sup, nP * TILE)
-            chunks = [src[:, c * TILE : (c + 1) * TILE] for c in range(nP)]
-            ridx = rank.reshape(rows_sup, mP * TILE)
-            outs = []
-            for q in range(mP):
-                rq = ridx[:, q * TILE : (q + 1) * TILE]
-                lo = q * s
-                c0, c1 = lo // TILE, (lo + s - 1) // TILE
-                off = lo - c0 * TILE
-                if c0 == c1:
-                    idx = rq + jnp.int32(off) if off else rq
-                    if off + s == TILE:  # rank == s (unselected, full tile)
-                        idx = jnp.minimum(idx, jnp.int32(TILE - 1))  # -> 128
-                    outs.append(
-                        jnp.take_along_axis(
-                            chunks[c0], idx, axis=1, mode="promise_in_bounds"
-                        )
-                    )
-                else:
-                    g0 = jnp.take_along_axis(
-                        chunks[c0],
-                        jnp.minimum(rq + jnp.int32(off), jnp.int32(TILE - 1)),
-                        axis=1, mode="promise_in_bounds",
-                    )
-                    g1 = jnp.take_along_axis(
-                        chunks[c1],
-                        jnp.maximum(rq + jnp.int32(off - TILE), jnp.int32(0)),
-                        axis=1, mode="promise_in_bounds",
-                    )
-                    outs.append(jnp.where(rq < jnp.int32(TILE - off), g0, g1))
-            g = outs[0] if mP == 1 else jnp.concatenate(outs, axis=1)
-            g = g.reshape(r_rows, GROUP)
-            out = out | (jnp.where(mb[k], g, jnp.uint32(0)) << jnp.uint32(8 * k))
-        from .common import store
-
-        store(out_ref, out)
-
-    return row_blocked_call(
-        kernel, ng=ng, in_widths=in_widths, extra_bytes_per_group=scratch,
-        out_dtype=out_store or jnp.uint32,
-    )
-
-
-def _prow_bytes(x, w4: int):
-    """(r, w4*LANES) packed words -> (r, GROUP) uint32 byte values, linear
-    column order, zero beyond the row's 4*w4*LANES real slots."""
-    cols = []
-    for i in range(4 * w4):
-        w0, sh = divmod(i, 4)
-        v = x[:, w0 * LANES : (w0 + 1) * LANES]
-        if sh:
-            v = v >> jnp.uint32(8 * sh)
-        cols.append(v & jnp.uint32(0xFF))
-    if 4 * w4 * LANES < GROUP:
-        cols.append(jnp.zeros((x.shape[0], GROUP - 4 * w4 * LANES), jnp.uint32))
-    return jnp.concatenate(cols, axis=1)
-
-
-def _single_pass_call(ng: int, w4s: dict[int, int], out_store=None):
-    present = sorted(w4s)
-    in_widths = [2 * LANES, 8 * LANES] + [w4s[k] * LANES for k in present]
-    # scratch: w, masks, packed cumsum(s), per-plane bytes/z — ~8 full
-    # (r, GROUP) uint32 intermediates beyond the in/out blocks, plus the
-    # in-kernel cumsum's own transients (lanes.scan_scratch_bytes)
-    from .lanes import scan_scratch_bytes
-
-    scratch = (8 * 4 * GROUP + scan_scratch_bytes()) if present else 0
-
-    def kernel(widths_ref, p0_ref, *refs):
-        out_ref = refs[-1]
-        prow_refs = dict(zip(present, refs[:-1]))
-        if not present:
-            del widths_ref  # widths carry no information when every
-            unpack_to(out_ref, p0_ref[:], 8)  # element is 1 byte wide
-            return
-        w = unpack_lanes(widths_ref[:], 2)  # (r, GROUP), values 0..3
-        out = unpack_lanes(p0_ref[:], 8)
-        masks = {k: (w >= jnp.uint32(k)).astype(jnp.uint32) for k in present}
-        # inclusive per-plane counts via at most two log-scans
-        # the masks are 0/1 and w <= 3, so the cumsums qualify for the MXU
-        # scan's cheapest form: a single unbiased int8 plane per 16-bit
-        # field (lanes._mxu_cumsum byte_planes/small contract)
-        if len(present) == 1:
-            k0 = present[0]
-            cs = {k0: group_cumsum(masks[k0], byte_planes=(0,), small=True)}
-        else:
-            a, b = present[0], present[-1]
-            packed = masks[a] | (masks[b] << jnp.uint32(16))
-            cp = group_cumsum(packed, byte_planes=(0, 2), small=True)
-            cs = {a: cp & jnp.uint32(0xFFFF), b: cp >> jnp.uint32(16)}
-            if len(present) == 3:
-                # w = mask1 + mask2 + mask3 elementwise, so one more scan
-                # of w itself yields rank2 without a third cumsum
-                cs[2] = group_cumsum(w, byte_planes=(0,), small=True) - cs[1] - cs[3]
-        for k in present:
-            rank = cs[k] - masks[k]  # exclusive rank among selected
-            x = _prow_bytes(prow_refs[k][:], w4s[k])
-            x = expand_monotone(x, rank)
-            out = out | (jnp.where(masks[k].astype(bool), x, jnp.uint32(0)) << jnp.uint32(8 * k))
-        from .common import store
-
-        store(out_ref, out)
-
-    return row_blocked_call(
-        kernel, ng=ng, in_widths=in_widths, extra_bytes_per_group=scratch,
-        out_dtype=out_store or jnp.uint32,
-    )
-
-
-def _unpack_call(ng: int, bits: int):
-    def kernel(in_ref, out_ref):
-        unpack_to(out_ref, in_ref[:], bits)
-
-    return row_blocked_call(kernel, ng=ng, in_widths=[bits * LANES])
-
-
-def _decode_xla(streams, ng: int, plane_lens):
-    """Fallback two-pass path (global rank cumsum + XLA gather) for
-    pathologically group-skewed planes — see PAD_CAP."""
-    n_pad = ng * GROUP
-    w = _unpack_call(ng, 2)(streams["widths"]).reshape(n_pad) + jnp.uint32(1)
-    out = _unpack_call(num_groups(plane_lens[0]), 8)(streams["plane0"]).reshape(-1)[:n_pad]
-    for k in (1, 2, 3):
-        if plane_lens[k] == 0:
-            continue
-        plane = _unpack_call(num_groups(plane_lens[k]), 8)(streams[f"plane{k}"]).reshape(-1)
-        mask = w > k
-        rank = jnp.cumsum(mask.astype(jnp.int32)) - 1
-        vals = jnp.take(plane, jnp.clip(rank, 0), axis=0)
-        out = out | (jnp.where(mask, vals, 0) << jnp.uint32(8 * k))
-    return out
+from ..util import GROUP, num_groups
+from .lanes import unpack_lanes
 
 
 def build(col: EncodedColumn, out_store=None):
     plane_lens = col.params["plane_lens"]
     ng = num_groups(col.n)
+    n_pad = ng * GROUP
+    out_dt = out_store or jnp.uint32
 
     def decode(streams):
-        if any(f"plane{k}" in streams for k in (1, 2, 3)):
-            # two-pass XLA skew fallback stays u32; api._to_logical narrows
-            return _decode_xla(streams, ng, plane_lens)
-        ss = {
-            k: streams[f"trow{k}"].shape[1] * 4 // TPG
-            for k in (1, 2, 3)
-            if f"trow{k}" in streams
-        }
-        if ss or not any(f"prow{k}" in streams for k in (1, 2, 3)):
-            return _tile_pass_call(ng, ss, out_store)(
-                streams["widths"],
-                streams["plane0"],
-                *(streams[f"trow{k}"] for k in sorted(ss)),
-            ).reshape(ng * GROUP)
-        w4s = {
-            k: streams[f"prow{k}"].shape[1] // LANES
-            for k in (1, 2, 3)
-            if f"prow{k}" in streams
-        }
-        return _single_pass_call(ng, w4s, out_store)(
-            streams["widths"],
-            streams["plane0"],
-            *(streams[f"prow{k}"] for k in sorted(w4s)),
-        ).reshape(ng * GROUP)
+        w = unpack_lanes(streams["widths"], 2)  # (ng, GROUP) width - 1
+        out = unpack_lanes(streams["plane0"], 8).reshape(-1)[:n_pad]
+        for k in (1, 2, 3):
+            if plane_lens[k] == 0:
+                continue
+            plane = unpack_lanes(streams[f"plane{k}"], 8).reshape(-1)
+            mask = w >= jnp.uint32(k)
+            c = jnp.cumsum(mask, axis=1, dtype=jnp.int32)
+            tot = c[:, -1]
+            rank = c + (jnp.cumsum(tot) - tot)[:, None] - 1
+            # plane k holds exactly the selected elements' bytes, so a
+            # selected element's rank is in range; clip bounds the rest
+            vals = jnp.take(plane, rank.reshape(-1), axis=0, mode="clip")
+            out = out | (jnp.where(mask.reshape(-1), vals, jnp.uint32(0)) << jnp.uint32(8 * k))
+        return out.astype(out_dt)
 
     return decode
 
 
-registry.register_device("dzbv", build, _prep, narrow_store=True)
+registry.register_device("dzbv", build, narrow_store=True)

@@ -1,8 +1,8 @@
-"""Device-side (Pallas) encoders — the optional on-TPU encode path.
+"""Device-side encoders — the optional on-device encode path.
 
 The reference keeps encoding host-side (SURVEY.md §1 'decode-only');
-BASELINE's north star allows "encode ... optionally in Pallas". The LMP
-pack kernel is the exact inverse of the unpack loop: for each output word,
+BASELINE's north star allows encoding on the device too. The LMP
+pack is the exact inverse of the unpack loop: for each output word,
 OR together the constant-shifted slot vectors that overlap it — again all
 full-vector ops with compile-time shift distances.
 
@@ -17,17 +17,14 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
 
 from ..format import EncodedColumn
-from ..registry import plan
 from ..util import GROUP, LANES, SLOTS, num_groups
-from .common import block_spec, use_interpret
 
 
-def pack_lanes_to(out_ref, v: jax.Array, bits: int) -> None:
-    """Inverse of unpack: (R, GROUP) uint32 values -> (R, bits*LANES) words
-    written into out_ref. Values must already fit in `bits`."""
+def pack_lanes(v: jax.Array, bits: int) -> jax.Array:
+    """Inverse of unpack: (R, GROUP) uint32 values -> (R, bits*LANES) words.
+    Values must already fit in `bits`."""
     terms: dict[int, list[jax.Array]] = {w: [] for w in range(bits)}
     for i in range(SLOTS):
         w0, s = divmod(i * bits, 32)
@@ -35,35 +32,23 @@ def pack_lanes_to(out_ref, v: jax.Array, bits: int) -> None:
         terms[w0].append(vi << jnp.uint32(s) if s else vi)
         if s + bits > 32:
             terms[w0 + 1].append(vi >> jnp.uint32(32 - s))
+    words = []
     for w in range(bits):
         acc = terms[w][0]
         for t in terms[w][1:]:
             acc = acc | t
-        out_ref[:, w * LANES : (w + 1) * LANES] = acc
+        words.append(acc)
+    return jnp.concatenate(words, axis=1)
 
 
-def _pack_call(ng: int, bits: int):
-    pl_plan = plan(ng * GROUP, 2 * 4 * (GROUP + bits * LANES))
-    r = pl_plan.groups_per_block
-
-    def kernel(in_ref, out_ref):
-        pack_lanes_to(out_ref, in_ref[:], bits)
-
-    return pl.pallas_call(
-        kernel,
-        grid=(pl_plan.grid,),
-        in_specs=[block_spec((r, GROUP), lambda i: (i, 0))],
-        out_specs=block_spec((r, bits * LANES), lambda i: (i, 0)),
-        out_shape=jax.ShapeDtypeStruct((ng, bits * LANES), jnp.uint32),
-        interpret=use_interpret(),
-    )
+_pack_jit = jax.jit(pack_lanes, static_argnums=1)
 
 
 def nbit_pack_device(values: jax.Array, bits: int) -> jax.Array:
     """values: flat uint32 device array (padded to GROUP multiple) ->
     (ng, bits*LANES) packed words, computed on-device."""
     ng = num_groups(values.shape[0])
-    return jax.jit(_pack_call(ng, bits))(values.reshape(ng, GROUP))
+    return _pack_jit(values.reshape(ng, GROUP), bits)
 
 
 def delta_streams_device(values: jax.Array, bits: int, n: int | None = None):
@@ -89,8 +74,7 @@ def delta_streams_device(values: jax.Array, bits: int, n: int | None = None):
         return z, anchors
 
     z, anchors = run(v)
-    packed = jax.jit(_pack_call(ng, bits))(z.reshape(ng, GROUP))
-    return packed, anchors
+    return nbit_pack_device(z.reshape(-1), bits), anchors
 
 
 def for_streams_device(values: jax.Array, bits: int, frame_len: int):
@@ -109,8 +93,7 @@ def for_streams_device(values: jax.Array, bits: int, frame_len: int):
         return offs, refs
 
     offs, refs = run(values)
-    packed = jax.jit(_pack_call(ng, bits))(offs.reshape(ng, GROUP))
-    return packed, refs
+    return nbit_pack_device(offs, bits), refs
 
 
 def encode_nbit_device(values: np.ndarray | jax.Array, *, bits: int, name: str = "col") -> EncodedColumn:
@@ -153,8 +136,7 @@ def rle_run_counts_device(values: jax.Array) -> jax.Array:
 
 def rle_streams_device(values: jax.Array, r_pad: int):
     """Build the RLE run tables on-device (FORMAT.md §1.5): run starts from
-    a neighbor-compare mask, run ranks from a per-group cumsum (the same
-    VPU-friendly shape as decode's scatter+cumsum, run in reverse), run
+    a neighbor-compare mask, run ranks from a per-group cumsum, run
     values/ends from two sorted drop-mode scatters. Values must be padded
     to whole GROUPs with last-value fill; r_pad must cover every group
     (use rle_run_counts_device)."""

@@ -1,10 +1,10 @@
-"""Frame-of-reference — Pallas decoder (FORMAT.md §1.2).
+"""Frame-of-reference — device decoder (FORMAT.md §1.2).
 
 The reference broadcasts the frame ref via shared memory / warp shuffle
 (libgiddy ``frame_of_reference.cuh``, SURVEY.md §3.1); here the per-group
 reference is expanded on the host (prep_streams — 4 bytes per 128 KiB of
-output) and rides in as a (rows, 1) block that broadcasts over lanes for
-free, fused into the unpack loop.
+output) and rides in as a (ng, 1) column that broadcasts over lanes,
+fused into the unpack.
 """
 
 from __future__ import annotations
@@ -14,9 +14,8 @@ import numpy as np
 
 from .. import registry
 from ..format import EncodedColumn
-from ..util import GROUP, LANES, num_groups
-from .common import row_blocked_call
-from .lanes import unpack_map_to
+from ..util import GROUP, num_groups
+from .lanes import unpack_map
 
 
 def prep(col: EncodedColumn) -> dict:
@@ -31,21 +30,12 @@ def prep(col: EncodedColumn) -> dict:
 def build(col: EncodedColumn, out_store=None):
     bits = col.params["bits"]
     ng = num_groups(col.n)
-    lut = col.params.get("_lut_d_pad")  # cascade's fused dictionary stage
-
-    def kernel(in_ref, ref_ref, out_ref):
-        # materialize the lane broadcast once, not per slot
-        ref = jnp.broadcast_to(ref_ref[:], (ref_ref.shape[0], LANES))
-        unpack_map_to(out_ref, in_ref[:], bits, lambda v, i: v + ref)
-
-    call = row_blocked_call(
-        kernel, ng=ng, in_widths=[bits * LANES, 1], lut_d_pad=lut,
-        out_dtype=out_store or jnp.uint32,
-    )
+    out_dt = out_store or jnp.uint32
 
     def decode(streams):
-        args = (streams["_lut"],) if lut else ()
-        return call(*args, streams["packed"], streams["refs_g"]).reshape(ng * GROUP)
+        ref = streams["refs_g"]
+        u = unpack_map(streams["packed"], bits, lambda v, i: v + ref)
+        return u.astype(out_dt).reshape(ng * GROUP)
 
     return decode
 

@@ -1,18 +1,15 @@
-"""Shared device-side idioms: lane-sliced bit extraction, zigzag, cumsum.
+"""Shared device-side idioms: lane-sliced bit extraction, zigzag, scans.
 
-This is the TPU re-think of libgiddy's on-device primitives library
+Re-think of libgiddy's on-device primitives library
 (``src/cuda/on_device/primitives/warp.cuh``, ``ptx.cuh`` bfe/funnel-shift —
 SURVEY.md §3.6): because the encoder emits the lane-major packed-group
 layout (FORMAT.md §0.1), every warp-shuffle/bit-field-extract trick becomes
-a full-vector shift by a compile-time constant. These helpers are plain
-traced functions usable inside any Pallas kernel body (and, unchanged, in
-XLA-level decode paths).
+a full-vector shift by a compile-time constant over whole ``(ng, width)``
+arrays, and every warp scan a ``jnp.cumsum``/prefix-XOR along the group
+row. XLA fuses the chains into the producer and consumer.
 """
 
 from __future__ import annotations
-
-import functools
-import os
 
 import jax
 import jax.numpy as jnp
@@ -20,28 +17,11 @@ import jax.numpy as jnp
 from ..util import GROUP, LANES, SLOTS
 
 
-@functools.cache
-def scan_mode() -> str:
-    """Which in-kernel cumsum implementation compiled decoders use.
-
-    - ``"mxu"`` (default): byte-plane decomposition x triangular int8
-      matmul on the MXU (:func:`_mxu_cumsum`) — moves the scan's O(log n)
-      full-width VPU work onto the otherwise-idle systolic array.
-    - ``"roll"``: the Hillis–Steele ``pltpu.roll`` log-scan
-      (:func:`_roll_cumsum`) — the round-1/2 design, kept as a fallback
-      and for A/B measurement (env ``GIDDY_TPU_SCAN=roll``).
-
-    Interpret mode (CPU tests) ignores this and uses ``jnp.cumsum``.
-    """
-    return os.environ.get("GIDDY_TPU_SCAN", "mxu")
-
-
 def unpack_slot(x: jax.Array, bits: int, i: int) -> jax.Array:
     """Slot ``i`` of an LMP(bits) packed block: the (R, LANES) uint32
     vector of values at linear positions ``i*LANES + lane`` (FORMAT §0.1).
     The one shared shift/stitch step every unpack variant unrolls: all
-    distances are Python constants, operands are full (R, 1024) vectors —
-    8 vregs wide, no gathers, no sublane traffic."""
+    distances are Python constants, operands are full (R, LANES) slices."""
     mask = jnp.uint32(0xFFFFFFFF) if bits == 32 else jnp.uint32((1 << bits) - 1)
     w0, s = divmod(i * bits, 32)
     v = x[:, w0 * LANES : (w0 + 1) * LANES]
@@ -56,61 +36,31 @@ def _u32(x: jax.Array) -> jax.Array:
     return x if x.dtype == jnp.uint32 else jax.lax.bitcast_convert_type(x, jnp.uint32)
 
 
+def unpack_map(x: jax.Array, bits: int, epilogue=None) -> jax.Array:
+    """LMP unpack with an optional per-slot epilogue: (R, bits*LANES) uint32
+    words -> (R, GROUP) values, ``epilogue(v, i)`` mapping slot ``i``'s
+    (R, LANES) vector (FOR/model/ALP fuse their frame arithmetic here — the
+    analog of the reference fusing the frame-ref add into the unpack loop,
+    SURVEY.md CS-2). Column j = i*LANES + c of the result is the group's
+    value at linear position j — outputs land in linear order by
+    construction (FORMAT §0.1)."""
+    x = _u32(x)
+    slots = [unpack_slot(x, bits, i) for i in range(SLOTS)]
+    if epilogue is not None:
+        slots = [epilogue(v, i) for i, v in enumerate(slots)]
+    return jnp.concatenate(slots, axis=1)
+
+
 def unpack_lanes(x: jax.Array, bits: int) -> jax.Array:
-    """LMP unpack: (R, bits*LANES) uint32 words -> (R, GROUP) uint32 values.
-
-    Column j = i*LANES + c of the result is the group's value at linear
-    position j — outputs land in linear order by construction (FORMAT §0.1).
-    """
-    x = _u32(x)
-    return jnp.concatenate([unpack_slot(x, bits, i) for i in range(SLOTS)], axis=1)
-
-
-def _slot_dst(out_ref, i: int):
-    """Destination index of slot ``i``'s (R, LANES) vector in ``out_ref``:
-    the column slice [i*LANES, (i+1)*LANES) of a (R, GROUP) ref, or the
-    matching (row, lane-range) of the 3D narrow-store geometry
-    (common.narrow_geom — w2 % LANES == 0 guarantees whole slots per
-    middle row, so the slice indices stay static full lane tiles)."""
-    if out_ref.ndim == 2:
-        return (slice(None), slice(i * LANES, (i + 1) * LANES))
-    q, c = divmod(i * LANES, out_ref.shape[2])
-    return (slice(None), q, slice(c, c + LANES))
-
-
-def unpack_to(out_ref, x: jax.Array, bits: int) -> None:
-    """LMP unpack writing each slot's vector straight into ``out_ref``
-    (a (R, GROUP) or narrow 3D ref) — avoids materializing the
-    concatenation when the kernel has no further use for the full block
-    (nbit/dzbf). Narrow ``out_ref`` dtypes store at storage width
-    (truncating slot stores)."""
-    x = _u32(x)
-    for i in range(SLOTS):
-        v = unpack_slot(x, bits, i)
-        if out_ref.dtype != v.dtype:
-            v = v.astype(out_ref.dtype)
-        out_ref[_slot_dst(out_ref, i)] = v
-
-
-def unpack_map_to(out_ref, x: jax.Array, bits: int, epilogue) -> None:
-    """LMP unpack with a fused per-slot epilogue: ``epilogue(v, i)`` maps the
-    (R, LANES) slot vector before it is stored. Keeps FOR/model/dict decode
-    one pass with zero intermediate materialization (the analog of the
-    reference fusing the frame-ref add into the unpack loop, SURVEY.md CS-2).
-    """
-    x = _u32(x)
-    for i in range(SLOTS):
-        v = epilogue(unpack_slot(x, bits, i), i)
-        if out_ref.dtype != v.dtype:
-            v = v.astype(out_ref.dtype)
-        out_ref[_slot_dst(out_ref, i)] = v
+    """LMP unpack: (R, bits*LANES) uint32 words -> (R, GROUP) uint32 values."""
+    return unpack_map(x, bits)
 
 
 def unpack_fold(x: jax.Array, bits: int, fold, init):
     """LMP unpack folding each slot vector into an accumulator:
     ``acc = fold(acc, v, i)`` over the 32 slots. The reduction sibling of
-    unpack_map_to — used by fused predicate scans (query.py) where the
-    kernel's output is smaller than the decoded block."""
+    unpack_map — used by fused predicate scans (query.py) where the
+    output is smaller than the decoded block."""
     x = _u32(x)
     acc = init
     for i in range(SLOTS):
@@ -118,497 +68,24 @@ def unpack_fold(x: jax.Array, bits: int, fold, init):
     return acc
 
 
-LUT_LANE = 128  # Mosaic dynamic_gather width: one hardware lane-tile
-
-
-def gather_lut(table: jax.Array, idx: jax.Array) -> jax.Array:
-    """In-kernel dictionary gather: ``out[r, j] = table[0, idx[r, j]]``.
-
-    The TPU re-think of libgiddy's shared-memory dictionary staging
-    (``dictionary.cuh``, SURVEY.md §3.1 DICT row): Mosaic's dynamic_gather
-    (``jnp.take_along_axis`` on the lane dim) is exact only *within* one
-    128-lane tile, so the table (1, d_pad) is split into d_pad/128 lane
-    blocks; each 128-lane slice of ``idx`` gathers from every block and a
-    select chain on the high index bits picks the right one. Cost per value:
-    d_pad/128 gathers+selects — O(d/128) where a naive select chain is O(d).
-    Works identically under the CPU interpreter (plain jnp semantics).
-
-    ``table``: (R, d_pad) uint32 — every row the same dictionary, d_pad a
-    multiple of 128 (entries past the real dictionary size are never
-    selected when codes are in range). Mosaic rejects an in-kernel
-    (1, 128) -> (R, 128) vector.broadcast, so the caller stages the table
-    row-tiled; with a constant block index Pallas DMAs it into VMEM once.
-    ``idx``: (R, C) uint32/int32 codes, C a multiple of 128.
-    """
-    R, C = idx.shape
-    d_pad = table.shape[-1]
-    nb = d_pad // LUT_LANE
-    if R == 1:
-        # Mosaic's gather lowering rejects single-sublane operands; widen to
-        # a full sublane tile (concat: sublane broadcasts of sliced values
-        # fail layout inference) and keep row 0 (only ng==1 columns hit this)
-        return gather_lut(
-            jnp.concatenate([table[:1]] * 8, axis=0),
-            jnp.concatenate([idx] * 8, axis=0),
-        )[0:1]
-    if table.shape[0] != R:  # interpret-mode convenience (plain jnp semantics)
-        table = jnp.broadcast_to(table, (R, d_pad))
-    blocks = [table[:, b * LUT_LANE : (b + 1) * LUT_LANE] for b in range(nb)]
-    idx = idx.astype(jnp.int32)
-    outs = []
-    for j in range(C // LUT_LANE):
-        ij = idx[:, j * LUT_LANE : (j + 1) * LUT_LANE]
-        low = ij & (LUT_LANE - 1)
-        hi = ij >> 7  # hoisted: one shift per slice, not per block
-        # promise_in_bounds: low < 128 by construction (mask above), so the
-        # default clamp lowering's lt/add/select triple per gather is dead
-        # weight — the ops census (round 4) showed it tripling the chain's
-        # per-block VPU cost
-        r = jnp.take_along_axis(blocks[0], low, axis=1, mode="promise_in_bounds")
-        for b in range(1, nb):
-            g = jnp.take_along_axis(blocks[b], low, axis=1, mode="promise_in_bounds")
-            r = jnp.where(hi == b, g, r)
-        outs.append(r)
-    return outs[0] if len(outs) == 1 else jnp.concatenate(outs, axis=1)
-
-
-def expand_monotone(x: jax.Array, rank: jax.Array) -> jax.Array:
-    """Monotone in-row gather: ``out[r, j] = x[r, rank[r, j]]`` for
-    nondecreasing ``rank`` with per-step increments in {0, 1} and
-    ``rank[r, 0] == 0`` (an exclusive cumsum of a 0/1 mask).
-
-    The TPU re-think of stream-compaction *inverse* (expand): Mosaic's
-    dynamic gather is exact only 128 lanes at a time, so instead every
-    destination pulls its value through a log2(width) conditional-roll
-    network — the same hardware idiom as :func:`group_cumsum`. Let
-    ``z[j] = j - rank[j]`` (the displacement; nondecreasing, steps in
-    {0,1}). Processing bits high→low, step ``b`` rolls right by ``2**b``
-    where bit ``b`` of the *destination's* z is set; monotonicity gives
-    ``z[j] - z[j - 2**b] <= 2**b``, which keeps the source's remaining
-    high bits equal to the destination's — the invariant that makes the
-    network compute ``x0[j - z[j]]`` exactly. Wrapped lanes from the roll
-    are never selected (``z[j] >= 2**b`` implies ``j >= 2**b``).
-
-    Used by dzbv plane alignment (kernels/dzbv.py) — the vreg-native
-    replacement for the reference's per-element byte addressing
-    (``discard_zero_bytes_variable.cuh``, SURVEY.md §3.1).
-    """
-    from .common import use_interpret  # deferred: avoid import cycle at init
-
-    if use_interpret():
-        return jnp.take_along_axis(x, rank.astype(jnp.int32), axis=1)
-    from jax.experimental.pallas import tpu as pltpu
-
-    cols = x.shape[1]
-    col = jax.lax.broadcasted_iota(jnp.int32, x.shape, 1)
-    z = col - rank.astype(jnp.int32)
-    b = 1 << ((cols - 1).bit_length() - 1)
-    while b:
-        x = jnp.where((z & b) != 0, pltpu.roll(x, b, 1), x)
-        b //= 2
-    return x
-
-
 def unzigzag(z: jax.Array) -> jax.Array:
     """uint32 zigzag -> uint32 two's-complement signed payload (FORMAT §0.2)."""
     return (z >> jnp.uint32(1)) ^ (-(z & jnp.uint32(1)))
 
 
-SCAN_TILE = 128  # MXU contraction width: one hardware lane tile
-
-
-def _lane_roll(x: jax.Array, k: int) -> jax.Array:
-    """Circular right-shift along the lane (last) dim: ``pltpu.roll`` in
-    compiled Mosaic, ``jnp.roll`` anywhere a TPU primitive cannot evaluate
-    (interpret mode, CPU algorithm tests)."""
-    from .common import use_interpret  # deferred: avoid import cycle at init
-
-    if use_interpret():
-        return jnp.roll(x, k, axis=1)
-    from jax.experimental.pallas import tpu as pltpu
-
-    return pltpu.roll(x, k, 1)
-
-
-def _roll_cumsum(x: jax.Array) -> jax.Array:
-    """Hillis–Steele log-scan: log2(width) steps of lane-roll + mask + add
-    — the VPU counterpart of libgiddy's warp-shuffle inclusive scan
-    (``primitives/warp.cuh``, SURVEY.md §3.6), with `pltpu.roll` playing
-    the role of ``__shfl_up_sync``. ~3 full-width VPU ops per element per
-    step (45 for a GROUP row)."""
-    rows, width = x.shape
-    col = jax.lax.broadcasted_iota(jnp.int32, (rows, width), 1)
-    k = 1
-    while k < width:
-        x = x + jnp.where(col >= k, _lane_roll(x, k), jnp.uint32(0))
-        k *= 2
-    return x
-
-
-def _mxu_tile_scan(
-    y: jax.Array, byte_planes: tuple[int, ...], small: bool, *, exclusive: bool = False
-) -> jax.Array:
-    """The within-128-lane-tile stage of :func:`_mxu_cumsum`: ``y`` is the
-    (rows*nt, SCAN_TILE) reshaped view; returns the per-tile inclusive (or
-    exclusive: strict triangle, same cost) cumsum (uint32 wrap), no
-    cross-tile carry."""
-    li = jax.lax.broadcasted_iota(jnp.int32, (SCAN_TILE, SCAN_TILE), 0)
-    lj = jax.lax.broadcasted_iota(jnp.int32, (SCAN_TILE, SCAN_TILE), 1)
-    tri = ((li < lj) if exclusive else (li <= lj)).astype(jnp.int8)
-    kmax = max(byte_planes)
-    # int32 accumulation of (dot_k << 8k): shifts/adds wrap bitwise, and the
-    # whole fold is exact mod 2**32 by linearity — one convert at the end
-    # instead of one per plane (round-4 ops-census trim)
-    acc = None
-    for k in byte_planes:
-        b = y if k == 0 else y >> jnp.uint32(8 * k)
-        if k < kmax:
-            b = b & jnp.uint32(0xFF)
-        if small:
-            p = b.astype(jnp.int32).astype(jnp.int8)
-        else:
-            p = (b.astype(jnp.int32) - 128).astype(jnp.int8)
-        t = jnp.dot(p, tri, preferred_element_type=jnp.int32)
-        if k:
-            t = t << jnp.int32(8 * k)
-        acc = t if acc is None else acc + t
-    if not small:
-        # one fused bias un-fold for every plane: each input was biased by
-        # -128, so position j's inclusive sum is short 128*(j+1) per plane
-        # (exclusive: 128*j), scaled 2**(8k) — a single fused multiply-add
-        bias = (128 * sum(1 << (8 * k) for k in byte_planes)) & 0xFFFFFFFF
-        pos1 = jax.lax.broadcasted_iota(jnp.int32, y.shape, 1) + (0 if exclusive else 1)
-        acc = acc + pos1 * jnp.int32(bias if bias < 2**31 else bias - 2**32)
-    return jax.lax.bitcast_convert_type(acc, jnp.uint32)
-
-
-def _mxu_cumsum(x: jax.Array, byte_planes: tuple[int, ...], small: bool) -> jax.Array:
-    """MXU-exact per-row inclusive cumsum, wrapping uint32.
-
-    The scan-family decoders' hot loop re-thought for the systolic array
-    (docs/DESIGN.md §3a's "known next lever", built round 3): the VPU
-    log-scan costs ~45 full-width ops/element on a GROUP row, which caps
-    scan-bearing schemes near ~38% of HBM speed-of-light on a v5e's VPU
-    alone; a 128-wide triangular matmul does the same prefix work at int8
-    MXU rate (~2x HBM speed even for 4 planes) with ~25 VPU ops left.
-
-    Exactness in uint32 wrap space, by construction:
-    - each listed byte plane b_k (value < 256, biased to int8 as b-128)
-      scans within a 128-lane tile via ``p @ L`` (L lower-triangular ones,
-      int8 x int8 -> int32): |sums| <= 128*128 fit int32 exactly; the bias
-      un-folds as ``+128*(j+1)``;
-    - planes recombine as ``sum_k 2**(8k) * t_k`` in uint32 (mod 2**32 --
-      the decomposition is exact per value, so the fold is exact mod 2**32);
-    - the 256 per-tile totals scan cross-tile with an 8-step u32 roll-scan
-      on 1/128-width data (exact trivially), then broadcast back with an
-      elementwise ``jnp.repeat`` (verified lowering in Mosaic).
-
-    ``byte_planes``: byte indices that may be nonzero in any input value —
-    the caller's static promise (delta/RLE pass all 4; dzbv's 0/1 masks
-    pass ``(0,)`` or the packed ``(0, 2)``). ``small=True`` additionally
-    promises every listed byte <= 127, skipping the bias entirely.
-
-    Bit-exactness vs ``np.cumsum`` verified on hardware for all plane
-    subsets, R in {1,3,8,16}, and multi-step grids (round-3 prototype;
-    re-proved every round by giddy_tpu.selftest).
-    """
-    rows, width = x.shape
-    nt = width // SCAN_TILE
-    acc = _mxu_tile_scan(x.reshape(rows * nt, SCAN_TILE), byte_planes, small)
-    # per-tile inclusive totals = the corrected scan's last column;
-    # exclusive prefix of them = the tiny 1/128-width roll scan
-    tot = acc[:, SCAN_TILE - 1 :].reshape(rows, nt)
-    carry = _tile_excl_scan(tot)
-    return acc.reshape(rows, width) + jnp.repeat(carry, SCAN_TILE, axis=1)
-
-
-def tile_cumsum(
-    x: jax.Array,
-    *,
-    byte_planes: tuple[int, ...] = (0, 1, 2, 3),
-    small: bool = False,
-    exclusive: bool = False,
-) -> jax.Array:
-    """Per-128-lane-TILE inclusive (or exclusive) cumsum (uint32 wrap), NO
-    cross-tile carry — the scan primitive of the round-5 dzbv tile layout
-    (kernels/dzbv.py): when data is re-anchored per tile at prep time,
-    ranks never cross a tile boundary and the carry stage (8 roll steps +
-    a full-width repeat-add) is pure waste. The exclusive form comes free
-    on the MXU path (strict triangle) — it IS the rank computation. Same
-    byte_planes/small contract as :func:`group_cumsum`; width must be a
-    multiple of 128."""
-    from .common import use_interpret  # deferred: avoid import cycle at init
-
-    rows, width = x.shape
-    nt = width // SCAN_TILE
-    y = x.reshape(rows * nt, SCAN_TILE)
-    if use_interpret():
-        c = jnp.cumsum(y, axis=1, dtype=jnp.uint32)
-        return (c - y if exclusive else c).reshape(rows, width)
-    if scan_mode() == "roll":
-        c = _roll_cumsum(y)
-        return (c - y if exclusive else c).reshape(rows, width)
-    return _mxu_tile_scan(y, byte_planes, small, exclusive=exclusive).reshape(rows, width)
-
-
-def scan_scratch_bytes(width: int = GROUP) -> int:
-    """Per-row VMEM transient estimate for one in-kernel
-    :func:`group_cumsum` (feeds the plan()'s bytes-per-group accounting —
-    Mosaic's stack allocator keeps several full-width intermediates live,
-    and under-accounting OOMs the hardware compile while the CPU
-    interpreter sails on; see kernels/rle.py's _chain_call lesson). The
-    MXU path holds ~4 extra full-width values (reshaped copy, dot output,
-    plane fold, repeat broadcast) vs the roll-scan's ~2."""
-    return (16 if scan_mode() != "roll" else 8) * width
-
-
-def group_cumsum(
-    x: jax.Array,
-    *,
-    byte_planes: tuple[int, ...] = (0, 1, 2, 3),
-    small: bool = False,
-) -> jax.Array:
-    """Per-row inclusive cumsum over the GROUP dimension, wrapping uint32.
+def group_cumsum(x: jax.Array) -> jax.Array:
+    """Per-row inclusive cumsum along the last axis, wrapping uint32.
 
     Rows are groups; columns are already in linear order, so this is the
     whole of delta reconstruction within a tile (anchors remove any
-    cross-tile carry — SURVEY.md §8.1 "anchors everywhere").
-
-    Mosaic has no cumsum primitive; compiled kernels use the MXU byte-plane
-    matmul scan by default (:func:`_mxu_cumsum` — see its contract for
-    ``byte_planes``/``small``) or the VPU roll-scan under
-    ``GIDDY_TPU_SCAN=roll``. Interpret mode is plain ``jnp.cumsum``.
-    """
-    from .common import use_interpret  # deferred: avoid import cycle at init
-
-    if use_interpret():
-        return jnp.cumsum(x, axis=1, dtype=jnp.uint32)
-    if scan_mode() == "roll" or x.shape[1] % SCAN_TILE:
-        return _roll_cumsum(x)
-    return _mxu_cumsum(x, byte_planes, small)
+    cross-tile carry — SURVEY.md §8.1 "anchors everywhere")."""
+    return jnp.cumsum(x, axis=-1, dtype=jnp.uint32)
 
 
-def signed_cumsum(d: jax.Array, bits: int) -> jax.Array:
-    """Inclusive cumsum (uint32 wrap space) of signed deltas known to be
-    unzigzags of a ``bits``-wide stream, i.e. d in [-2**(bits-1), 2**(bits-1)).
-
-    Negative deltas light up all four byte planes in wrap space, so a naive
-    :func:`group_cumsum` always pays the 4-plane MXU fold. Biasing by
-    c = 2**(bits-1) first puts every addend in [0, 2**bits) — only
-    ceil(bits/8) planes are nonzero — and the bias un-folds exactly as
-    (j+1)*c by linearity (mod 2**32). For the common narrow-delta columns
-    (bits <= 8) the scan collapses to ONE small-path int8 matmul; the
-    round-4 ops census (roofline.ops_audit) is the structural record.
-    """
-    if bits >= 25:  # 4 planes either way: the bias would only add ops
-        return group_cumsum(d)
-    c = jnp.uint32(1 << (bits - 1)) if bits else jnp.uint32(0)
-    planes = tuple(range((bits + 7) // 8)) or (0,)
-    s = group_cumsum(d + c, byte_planes=planes, small=bits <= 7)
-    pos1 = jax.lax.broadcasted_iota(jnp.uint32, d.shape, 1) + jnp.uint32(1)
-    return s - pos1 * c
-
-
-def _tile_excl_scan(tot: jax.Array, combine=jnp.add) -> jax.Array:
-    """Exclusive prefix-``combine`` (u32 wrap; add or bitwise_xor — both
-    have identity 0) over the tile dimension of a (rows, nt) per-tile
-    totals array — the tiny 1/128-width roll scan shared by every tiled
-    scan here (cumsum, double cumsum, and the XOR family)."""
-    rows, nt = tot.shape
-    col = jax.lax.broadcasted_iota(jnp.int32, (rows, nt), 1)
-    carry = jnp.where(col >= 1, _lane_roll(tot, 1), jnp.uint32(0))
-    k = 1
-    while k < nt:
-        carry = combine(carry, jnp.where(col >= k, _lane_roll(carry, k), jnp.uint32(0)))
-        k *= 2
-    return carry
-
-
-def _mxu_double_cumsum(x: jax.Array, byte_planes: tuple[int, ...], small: bool) -> jax.Array:
-    """Per-row inclusive DOUBLE cumsum (cumsum of cumsum), wrapping uint32,
-    in one MXU pass per byte plane (round 4; delta2's outer scan).
-
-    Within a 128-lane tile the double prefix has the closed form
-    ``c2w[j] = Σ_{i<=j} (j-i+1)·x[i]`` — a matmul with the triangular RAMP
-    matrix T2[i,j] = j-i+1 (values 1..128). int8 can't hold 128, so the
-    operand rides bf16: plane values (biased to [-128,127]) and ramp
-    entries (<=128) are exact in bf16, every product (<=2^14) and the f32
-    accumulation (<=2^21 < 2^24) exact in f32 — the dot output is the
-    exact integer, converted back to int32.
-
-    Cross-tile, with S_t = Σ_tile x (= c1w[t,127]) and Q_t = c2w[t,127]:
-      c1[t,j] = c1w[t,j] + A_t,          A_t = exclusive-scan(S)
-      c2[t,j] = c2w[t,j] + A_t·(j+1) + B_t,
-      B_t = exclusive-scan(Q_t + 128·A_t)
-    (the B term is Σ_{u<t} Σ_j' c1[u,j']); all carry scans run on the
-    1/128-width totals. Per-plane int8-style bias un-folds through the
-    double sum as the LOCAL triangular numbers 128·T(j+1), T(m)=m(m+1)/2.
-    """
-    rows, width = x.shape
-    nt = width // SCAN_TILE
-    y = x.reshape(rows * nt, SCAN_TILE)
-    li = jax.lax.broadcasted_iota(jnp.int32, (SCAN_TILE, SCAN_TILE), 0)
-    lj = jax.lax.broadcasted_iota(jnp.int32, (SCAN_TILE, SCAN_TILE), 1)
-    ramp = jnp.where(li <= lj, lj - li + 1, 0).astype(jnp.bfloat16)
-    kmax = max(byte_planes)
-    acc = None
-    for k in byte_planes:
-        b = y if k == 0 else y >> jnp.uint32(8 * k)
-        if k < kmax:
-            b = b & jnp.uint32(0xFF)
-        p = b.astype(jnp.int32)
-        if not small:
-            p = p - 128
-        t = jnp.dot(p.astype(jnp.bfloat16), ramp, preferred_element_type=jnp.float32)
-        t = t.astype(jnp.int32)
-        if k:
-            t = t << jnp.int32(8 * k)
-        acc = t if acc is None else acc + t
-    if not small:
-        bias = (128 * sum(1 << (8 * k) for k in byte_planes)) & 0xFFFFFFFF
-        m = jax.lax.broadcasted_iota(jnp.int32, (rows * nt, SCAN_TILE), 1) + 1
-        tloc = (m * (m + 1)) >> 1  # local triangular numbers, <= 8256
-        acc = acc + tloc * jnp.int32(bias if bias < 2**31 else bias - 2**32)
-    c2w = jax.lax.bitcast_convert_type(acc, jnp.uint32)
-    # tile sums in int32 wrap space: Mosaic has no unsigned reduction
-    # lowering (chip-only failure the CPU interpreter never sees)
-    si = jnp.sum(jax.lax.bitcast_convert_type(y, jnp.int32), axis=1, dtype=jnp.int32)
-    S = jax.lax.bitcast_convert_type(si, jnp.uint32).reshape(rows, nt)
-    Q = c2w[:, SCAN_TILE - 1 :].reshape(rows, nt)
-    A = _tile_excl_scan(S)
-    B = _tile_excl_scan(Q + A * jnp.uint32(SCAN_TILE))
-    jloc = (
-        jax.lax.broadcasted_iota(jnp.uint32, (rows, width), 1) & jnp.uint32(SCAN_TILE - 1)
-    ) + jnp.uint32(1)
-    return (
-        c2w.reshape(rows, width)
-        + jnp.repeat(A, SCAN_TILE, axis=1) * jloc
-        + jnp.repeat(B, SCAN_TILE, axis=1)
-    )
-
-
-def signed_double_cumsum(d: jax.Array, bits: int) -> jax.Array:
-    """``cumsum(cumsum(d))`` (uint32 wrap) for d = unzigzag of a
-    ``bits``-wide stream — delta2's whole scan stage in one MXU pass per
-    byte plane of the BIASED second differences (the naive form pays a
-    narrow scan plus a full-width 4-plane scan, since first differences
-    are full-width in wrap space). Bias c = 2^(bits-1) un-folds through
-    the double sum as c·T(j+1), T(m) = m(m+1)/2 — (j+1)(j+2) < 2^31 for
-    GROUP rows, so the shift is exact."""
-    from .common import use_interpret  # deferred: avoid import cycle at init
-
-    if use_interpret():
-        c1 = jnp.cumsum(d, axis=1, dtype=jnp.uint32)
-        return jnp.cumsum(c1, axis=1, dtype=jnp.uint32)
-    if bits >= 25 or scan_mode() == "roll" or d.shape[1] % SCAN_TILE:
-        return group_cumsum(signed_cumsum(d, bits))
-    c = jnp.uint32(1 << (bits - 1)) if bits else jnp.uint32(0)
-    planes = tuple(range((bits + 7) // 8)) or (0,)
-    D = _mxu_double_cumsum(d + c, planes, bits <= 7)
-    j1 = jax.lax.broadcasted_iota(jnp.uint32, d.shape, 1) + jnp.uint32(1)
-    tglob = (j1 * (j1 + 1)) >> jnp.uint32(1)
-    return D - tglob * c
-
-
-@functools.cache
-def xor_mode() -> str:
-    """Which prefix-XOR implementation compiled decoders use (A/B knob,
-    mirroring :func:`scan_mode`): ``auto`` (default — MXU bit-plane parity
-    when the stream is <= XOR_MXU_MAX bits, else the two-level tiled roll),
-    ``mxu``, ``tiled``, or ``flat`` (the round-1..3 single-level 15-step
-    roll network, kept for A/B)."""
-    return os.environ.get("GIDDY_TPU_XOR", "auto")
-
-
-# MXU parity break-even: per active bit plane the parity scan costs ~7 VPU
-# ops + one 128-wide int8 matmul, vs ~30 VPU ops flat for the two-level
-# roll network — so the matmul form wins only for very narrow XOR streams.
-XOR_MXU_MAX = 4
-
-
-def _flat_cumxor(x: jax.Array) -> jax.Array:
-    """Single-level Hillis–Steele roll network over the full row width:
-    log2(width) steps x ~4 full-width VPU ops — the original design, kept
-    as the ragged-width fallback and the A/B baseline."""
-    rows, width = x.shape
-    col = jax.lax.broadcasted_iota(jnp.int32, (rows, width), 1)
-    k = 1
-    while k < width:
-        x = x ^ jnp.where(col >= k, _lane_roll(x, k), jnp.uint32(0))
-        k *= 2
-    return x
-
-
-def _tiled_cumxor(x: jax.Array) -> jax.Array:
-    """Two-level prefix-XOR: 7-step roll network within 128-lane tiles,
-    then an 8-step roll network over the 1/128-width tile totals, then one
-    broadcast-XOR — ~half the full-width VPU ops of the flat network
-    (log2(128) instead of log2(GROUP) full-width steps; the total-scan runs
-    on 1/128 of the data). Same reshape/repeat shapes as _mxu_cumsum, whose
-    Mosaic lowering is hardware-proved every round."""
-    rows, width = x.shape
-    nt = width // SCAN_TILE
-    y = x.reshape(rows * nt, SCAN_TILE)
-    col = jax.lax.broadcasted_iota(jnp.int32, (rows * nt, SCAN_TILE), 1)
-    k = 1
-    while k < SCAN_TILE:
-        y = y ^ jnp.where(col >= k, _lane_roll(y, k), jnp.uint32(0))
-        k *= 2
-    tot = y[:, SCAN_TILE - 1 :].reshape(rows, nt)
-    carry = _tile_excl_scan(tot, jnp.bitwise_xor)
-    return y.reshape(rows, width) ^ jnp.repeat(carry, SCAN_TILE, axis=1)
-
-
-def _mxu_cumxor(x: jax.Array, bits: int) -> jax.Array:
-    """MXU bit-plane parity prefix-XOR (VERDICT r3 next #4): prefix-XOR of
-    bit b is the parity of the prefix-COUNT of bit b, and prefix-counts are
-    exactly the triangular int8 matmul of :func:`_mxu_cumsum` — so each of
-    the ``bits`` active planes costs one 128-wide dot plus a mask/shift/or
-    fold. Wins over the roll networks only when the encoder bounds the
-    stream narrow (bits <= XOR_MXU_MAX); the caller gates on that."""
-    rows, width = x.shape
-    nt = width // SCAN_TILE
-    y = x.reshape(rows * nt, SCAN_TILE)
-    li = jax.lax.broadcasted_iota(jnp.int32, (SCAN_TILE, SCAN_TILE), 0)
-    lj = jax.lax.broadcasted_iota(jnp.int32, (SCAN_TILE, SCAN_TILE), 1)
-    tri = (li <= lj).astype(jnp.int8)
-    acc = None
-    for b in range(bits):
-        p = y >> jnp.uint32(b) if b else y
-        p = (p & jnp.uint32(1)).astype(jnp.int32).astype(jnp.int8)
-        t = jnp.dot(p, tri, preferred_element_type=jnp.int32) & jnp.int32(1)
-        if b:
-            t = t << jnp.int32(b)
-        acc = t if acc is None else acc | t
-    acc = jax.lax.bitcast_convert_type(acc, jnp.uint32)
-    tot = acc[:, SCAN_TILE - 1 :].reshape(rows, nt)
-    carry = _tile_excl_scan(tot, jnp.bitwise_xor)
-    return acc.reshape(rows, width) ^ jnp.repeat(carry, SCAN_TILE, axis=1)
-
-
-def group_cumxor(x: jax.Array, bits: int | None = None) -> jax.Array:
-    """Per-row inclusive prefix-XOR over the GROUP dimension — the XOR twin
-    of :func:`group_cumsum`. Backbone of xordelta decode.
-
-    ``bits``: the caller's static bound on active bit planes (xordelta's
-    LMP width). XOR is not linear over the integers, so the byte-plane
-    matmul of the cumsum does not apply wholesale; instead (round 4):
-    narrow streams ride a per-bit-plane MXU parity scan, everything else a
-    two-level tiled roll network (~half the flat network's VPU ops). See
-    :func:`xor_mode` for the A/B knob.
-    """
-    from .common import use_interpret  # deferred: avoid import cycle at init
-
-    if use_interpret():
-        return jax.lax.associative_scan(jnp.bitwise_xor, x, axis=1)
-    if bits == 0:
-        return x  # all-zero stream: prefix-XOR is the identity
-    mode = xor_mode()
-    if x.shape[1] % SCAN_TILE or mode == "flat":
-        return _flat_cumxor(x)
-    if mode == "mxu" or (mode == "auto" and bits is not None and bits <= XOR_MXU_MAX):
-        return _mxu_cumxor(x, bits if bits is not None else 32)
-    return _tiled_cumxor(x)
+def group_cumxor(x: jax.Array) -> jax.Array:
+    """Per-row inclusive prefix-XOR along the last axis — the XOR twin of
+    :func:`group_cumsum`. Backbone of xordelta decode."""
+    return jax.lax.associative_scan(jnp.bitwise_xor, x, axis=x.ndim - 1)
 
 
 def linear_iota(rows: int) -> jax.Array:

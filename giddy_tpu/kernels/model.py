@@ -1,7 +1,7 @@
-"""Per-frame model (linear / quadratic) — Pallas decoder (FORMAT.md §1.7).
+"""Per-frame model (linear / quadratic) — device decoder (FORMAT.md §1.7).
 
-Prediction a + b·p (+ c·p² for ``kind="poly2"``) is evaluated per element
-on the VPU. The per-group affine terms (A_g = a_f + b_f·p0 + c_f·p0²,
+Prediction a + b·p (+ c·p² for ``kind="poly2"``) is evaluated
+elementwise. The per-group affine terms (A_g = a_f + b_f·p0 + c_f·p0²,
 B_g = b_f + 2·c_f·p0, C_g = c_f — the polynomial shifted to the group
 start, exact in uint32 wrap space) are expanded on the HOST (prep_streams)
 and cross the jit boundary as (ng, 1) arguments — an XLA constant-gather
@@ -18,8 +18,7 @@ import numpy as np
 from .. import registry
 from ..format import EncodedColumn
 from ..util import GROUP, LANES, num_groups
-from .common import row_blocked_call
-from .lanes import unpack_map_to, unzigzag
+from .lanes import unpack_map, unzigzag
 
 
 def prep(col: EncodedColumn) -> dict:
@@ -52,42 +51,30 @@ def build(col: EncodedColumn, out_store=None):
     bits = col.params["bits"]
     ng = num_groups(col.n)
     poly2 = col.params.get("kind") == "poly2"
+    out_dt = out_store or jnp.uint32
 
-    def kernel(in_ref, a_ref, b_ref, *rest):
-        out_ref = rest[-1]
-        rows = a_ref.shape[0]
+    def decode(streams):
+        a, b = streams["a_g"], streams["b_g"]
         # slot i's positions are p = i*LANES + lane. Linear: pred =
         # (a + b*lane) + (b*LANES)*i. Quadratic adds c*p² =
         # c*lane² + (2*LANES*c*lane)*i + (c*LANES²)*i² — every i-term has a
         # compile-time coefficient, so the whole epilogue stays full-vector
-        # multiply-adds with the lane broadcasts materialized once.
-        lane = jax.lax.broadcasted_iota(jnp.uint32, (rows, LANES), 1)
-        base = jnp.broadcast_to(a_ref[:], (rows, LANES)) + b_ref[:] * lane
-        step = jnp.broadcast_to(b_ref[:] * jnp.uint32(LANES), (rows, LANES))
+        # multiply-adds.
+        lane = jax.lax.broadcasted_iota(jnp.uint32, (ng, LANES), 1)
+        base = a + b * lane
+        step = b * jnp.uint32(LANES)
         if poly2:
-            c_ref = rest[0]
-            base = base + c_ref[:] * (lane * lane)
-            step = step + (c_ref[:] * jnp.uint32(2 * LANES)) * lane
-            step2 = jnp.broadcast_to(
-                c_ref[:] * jnp.uint32(LANES * LANES), (rows, LANES)
-            )
+            c = streams["c_g"]
+            base = base + c * (lane * lane)
+            step = step + (c * jnp.uint32(2 * LANES)) * lane
+            step2 = c * jnp.uint32(LANES * LANES)
             epi = lambda v, i: (
                 base + step * jnp.uint32(i) + step2 * jnp.uint32(i * i) + unzigzag(v)
             )
         else:
             epi = lambda v, i: base + step * jnp.uint32(i) + unzigzag(v)
-        unpack_map_to(out_ref, in_ref[:], bits, epi)
-
-    call = row_blocked_call(
-        kernel, ng=ng, in_widths=[bits * LANES, 1, 1] + ([1] if poly2 else []),
-        out_dtype=out_store or jnp.uint32,
-    )
-
-    def decode(streams):
-        args = (streams["c_g"],) if poly2 else ()
-        return call(streams["packed"], streams["a_g"], streams["b_g"], *args).reshape(
-            ng * GROUP
-        )
+        u = unpack_map(streams["packed"], bits, epi)
+        return u.astype(out_dt).reshape(ng * GROUP)
 
     return decode
 

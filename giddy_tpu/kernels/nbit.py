@@ -1,8 +1,8 @@
-"""NBit unpack — Pallas decoder (FORMAT.md §1.1; BASELINE configs[0]).
+"""NBit unpack — device decoder (FORMAT.md §1.1; BASELINE configs[0]).
 
 Replaces libgiddy's per-lane ``bfe``/funnel-shift unpack inner loop
 (SURVEY.md call stack CS-2 hot loop) with 32 constant-shift full-vector ops
-per block row. Also backs dzbf (B = 8·w, FORMAT §1.9).
+per group row. Also backs dzbf (B = 8·w, FORMAT §1.9).
 """
 
 from __future__ import annotations
@@ -11,27 +11,17 @@ import jax.numpy as jnp
 
 from .. import registry
 from ..format import EncodedColumn
-from ..util import GROUP, LANES, num_groups
-from .common import row_blocked_call
-from .lanes import unpack_to
+from ..util import GROUP, num_groups
+from .lanes import unpack_lanes
 
 
 def build(col: EncodedColumn, out_store=None):
     bits = col.params["bits"] if col.scheme == "nbit" else 8 * col.params["width"]
     ng = num_groups(col.n)
-    lut = col.params.get("_lut_d_pad")  # cascade's fused dictionary stage
-
-    def kernel(in_ref, out_ref):
-        unpack_to(out_ref, in_ref[:], bits)
-
-    call = row_blocked_call(
-        kernel, ng=ng, in_widths=[bits * LANES], lut_d_pad=lut,
-        out_dtype=out_store or jnp.uint32,
-    )
+    out_dt = out_store or jnp.uint32
 
     def decode(streams):
-        args = (streams["_lut"],) if lut else ()
-        return call(*args, streams["packed"]).reshape(ng * GROUP)
+        return unpack_lanes(streams["packed"], bits).astype(out_dt).reshape(ng * GROUP)
 
     return decode
 

@@ -1,9 +1,9 @@
 """Exception patching — device decoder (FORMAT.md §1.11).
 
 Two passes on one stream, like the reference (SURVEY.md call stack CS-3):
-base decode (Pallas) then a scatter of the exception values; the
+base decode then a scatter of the exception values; the
 compressed-indices variant delta-decodes the positions first (reusing the
-delta Pallas kernel on the nested column). On the mesh, patch streams are
+delta decoder on the nested column). On the mesh, patch streams are
 pre-partitioned per shard so the scatter stays chip-local (handled by the
 dist driver).
 """
@@ -15,10 +15,9 @@ import numpy as np
 
 from .. import registry
 from ..format import EncodedColumn
-from ..util import GROUP, LANES, num_groups
+from ..util import GROUP, num_groups
 from . import delta as k_delta
-from .common import row_blocked_call
-from .lanes import unpack_map_to, unpack_to
+from .lanes import unpack_lanes, unpack_map
 
 
 def prep(col: EncodedColumn) -> dict:
@@ -42,24 +41,16 @@ def build(col: EncodedColumn, out_store=None):
 
     if base_scheme == "for":
 
-        def kernel(in_ref, ref_ref, out_ref):
-            ref = jnp.broadcast_to(ref_ref[:], (ref_ref.shape[0], LANES))
-            unpack_map_to(out_ref, in_ref[:], bits, lambda v, i: v + ref)
-
-        call = row_blocked_call(kernel, ng=ng, in_widths=[bits * LANES, 1], out_dtype=out_dt)
-
         def base_decode(streams):
-            return call(streams["base_packed"], streams["base_refs_g"]).reshape(ng * GROUP)
+            ref = streams["base_refs_g"]
+            u = unpack_map(streams["base_packed"], bits, lambda v, i: v + ref)
+            return u.astype(out_dt).reshape(ng * GROUP)
 
     else:
 
-        def kernel(in_ref, out_ref):
-            unpack_to(out_ref, in_ref[:], bits)
-
-        call = row_blocked_call(kernel, ng=ng, in_widths=[bits * LANES], out_dtype=out_dt)
-
         def base_decode(streams):
-            return call(streams["base_packed"]).reshape(ng * GROUP)
+            u = unpack_lanes(streams["base_packed"], bits)
+            return u.astype(out_dt).reshape(ng * GROUP)
 
     pos_decode = None
     if kind == "compressed" and count:

@@ -1,426 +1,83 @@
 """RLE / RPE — device decoders (FORMAT.md §1.5–1.6; BASELINE configs[3]).
 
-The irregular kernel of the family (libgiddy ``run_length_encoding.cuh``,
-SURVEY.md call stack CS-4). Where the CUDA reference expands runs with a
-block-local scan + per-thread binary search, we re-anchor the run tables to
-a VMEM tile width ``W`` at prep time and decode in **one Pallas pass**:
+The irregular decoder of the family (libgiddy ``run_length_encoding.cuh``,
+SURVEY.md call stack CS-4), in the reference's own form: every element
+binary-searches its position in its group's sorted run-end table
+(log2(r_pad) branchless probes), then gathers the run value. It runs on
+the container's own per-GROUP tables (runs are split at GROUP boundaries
+and padded to ``r_pad`` by the encoder, FORMAT §1.5), so the host does no
+re-layout. rpe's run starts become ends by a one-run shift.
 
-- Host prep re-splits the per-GROUP run tables into per-tile tables of
-  ``w_pad`` runs each (``W`` chosen adaptively so ``w_pad`` stays small —
-  the reference's anchor idea pushed all the way down to the vreg tile).
-- The kernel reads each tile's ``(w_pad)`` run table and writes its ``(W,)``
-  output slice in one of two branchless forms (round 4, chosen by table
-  density): a select chain (``w_pad`` full-vector compare+selects — cheaper
-  through w_pad <= RANK_MIN) or a vectorized binary search (``_rank_call``,
-  the reference's per-thread binary search as 7 conditional dynamic-gather
-  probes — flat ~30 VPU-equivalents/element, ~8x cheaper than the chain at
-  w_pad = 128). Either way the only HBM traffic is the run tables in and
-  the decoded tile out (the single-pass property BASELINE's >=80%-SoL
-  target needs; the prior XLA-scatter + cumsum design made ~3x
-  decoded-bytes of traffic).
-
-Pathologically dense runs (avg run length < ~4, where RLE is a losing
-scheme anyway) fall back to the old two-pass form: scatter each run's
-value-jump onto its start position, then one dense per-group cumsum.
+Measured on an H100 against per-tile select chains, per-tile searches and
+scatter+cumsum (CHANGES.md, PR 1): re-tiled tables decode faster on the
+device, but their host re-layout costs far more than they save per call.
 """
 
 from __future__ import annotations
 
-import os
-
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
+import numpy as np
 
 from .. import registry
 from ..format import EncodedColumn
-from ..registry import plan
 from ..util import GROUP, next_power_of_2, num_groups
-from .common import block_spec, use_interpret
-from .lanes import group_cumsum
-
-# Absolute per-tile run-count ceiling at the smallest tile width before
-# falling back to the scatter+cumsum path (the select chain beyond it is
-# hopeless AND the 7-probe search addresses one 128-lane table).
-CHAIN_HARD = int(os.environ.get("GIDDY_TPU_RLE_CHAIN_HARD", 128))
-# Above this per-tile run count the select chain (~2 ops/run/element) loses
-# to the branchless binary search (RANK_OPS flat — _rank_call, round 4);
-# at or below it the chain is cheaper. The round-5 regime census
-# machine-checks this crossover (tests/test_ops_roofline.py).
-RANK_MIN = int(os.environ.get("GIDDY_TPU_RLE_RANK_MIN", 16))
-# Censused flat cost of the binary-search expansion (VPU issue slots per
-# output element: 7 probes x (gather+cmp+add) + the final value gather,
-# per 128-lane slice) and of one chain step (compare+select per run).
-RANK_OPS = 37.0
-CHAIN_OPS_PER_RUN = 2.0
-# Marginal VPU issue slots one extra HBM byte/element buys on a v5e
-# (VPU_LANES * ALU_SLOTS * clock / HBM_BW = 1024*4*0.94e9/819e9): converts
-# the run-table re-read traffic of small tile widths into op-equivalents
-# so the W selection minimizes TOTAL cost, not table bytes alone.
-OPS_PER_BYTE = 4.6
-# Candidate tile widths, largest first (ties in cost keep the larger W).
-_W_CANDIDATES = (GROUP, 16384, 8192, 4096, 2048, 1024, 512)
 
 
-def _tile_counts(starts, valid, W: int, T: int):
-    """Runs overlapping each W-tile: (#run starts inside the tile) + 1 for
-    the run spanning in from the previous tile (0 if a run starts exactly
-    at the tile boundary)."""
-    import numpy as np
+def expand_runs(ends, vals):
+    """out[g, j] = vals[g, #{k : ends[g, k] <= j}]: (ng, r_pad) sorted
+    exclusive run ends and run values -> (ng, GROUP). Every group's last
+    end is the GROUP sentinel, so the rank stays < r_pad. The probes index
+    the flattened tables (row offset + rank), which XLA gathers without
+    materializing per-row batch indices; ``clip`` keeps any index from a
+    corrupt table inside the arrays."""
+    ng, r_pad = vals.shape
+    col = jax.lax.broadcasted_iota(jnp.int32, (ng, GROUP), 1)
+    row = jax.lax.broadcasted_iota(jnp.int32, (ng, GROUP), 0) * jnp.int32(r_pad)
+    flat_ends, flat_vals = ends.reshape(-1), vals.reshape(-1)
+    r = jnp.zeros((ng, GROUP), jnp.int32)
+    step = next_power_of_2(r_pad) // 2
+    while step:
+        e = jnp.take(flat_ends, row + r + jnp.int32(step - 1), mode="clip")
+        r = r + jnp.where(e <= col, jnp.int32(step), jnp.int32(0))
+        step //= 2
+    return jnp.take(flat_vals, row + r, mode="clip")
 
-    ng = starts.shape[0]
-    tidx = np.arange(ng)[:, None] * T + starts // W
-    counts = np.bincount(tidx[valid], minlength=ng * T)
-    at_bound = np.zeros(ng * T, bool)
-    at_bound[tidx[valid & (starts % W == 0)]] = True
-    return counts + ~at_bound
 
-
-def tile_prep(run_values, bounds, *, positions: bool):
-    """Host-side: per-GROUP run tables -> per-W-tile tables.
-
-    Returns ``{"vals_w": (ng, T, w_pad) uint32, "ends_w": (ng, T, w_pad)
-    int32}`` (leading dim stays ng so dist sharding / group slicing work
-    unchanged), or None when run density exceeds CHAIN_HARD even at the
-    smallest tile width (caller falls back to :func:`scatter_prep`).
-
-    ``ends_w`` are tile-relative exclusive ends in [1, W]; runs beyond the
-    tile clip to the sentinel W (never selected). ``bounds`` is the
-    container's run_ends (rle) or run_starts (rpe); both normalize to ends
-    form here, so one kernel serves both schemes.
-    """
-    import numpy as np
-
-    ng, r_pad = bounds.shape
-    vals = run_values.view(np.uint32)
+def run_tables(run_values, bounds, *, positions: bool) -> dict:
+    """(ng, r_pad) run tables -> the decoder's streams: exclusive run ends
+    (rpe's starts shift left by one run, the last real run ending at the
+    GROUP sentinel) and run values."""
     if positions:
-        starts = bounds.astype(np.int64)
-        ends = np.concatenate(
-            [starts[:, 1:], np.full((ng, 1), GROUP, np.int64)], axis=1
-        )
-    else:
-        ends = bounds.astype(np.int64)
-        starts = np.concatenate(
-            [np.zeros((ng, 1), np.int64), ends[:, :-1]], axis=1
-        )
-    valid = starts < GROUP  # pad runs start at the GROUP sentinel
-
-    # W selection (round 5, VERDICT r4 next #4): minimize censused total
-    # cost = expansion issue-ops + run-table re-read traffic in
-    # op-equivalents. Long-run columns now land on small W with a tiny
-    # chain (~16 ops/elem) instead of a GROUP-wide table on the flat
-    # RANK_OPS search; the table inflation this buys is a few percent of
-    # the decoded bytes, priced in via OPS_PER_BYTE.
-    chosen = None
-    best_cost = None
-    for W in _W_CANDIDATES:
-        T = GROUP // W
-        counts = _tile_counts(starts, valid, W, T)
-        w_pad = max(8, next_power_of_2(int(counts.max())))
-        if w_pad > CHAIN_HARD:
-            continue
-        # mirror _build's dispatch exactly: the binary search only runs
-        # for RANK_MIN < w_pad <= 128 (it addresses one 128-lane table);
-        # everything else pays the chain — pricing w_pad > 128 at
-        # RANK_OPS would let a mispriced candidate win under a raised
-        # GIDDY_TPU_RLE_CHAIN_HARD and then decode ~2*w_pad ops/elem
-        if RANK_MIN < w_pad <= 128:
-            expand = min(RANK_OPS, CHAIN_OPS_PER_RUN * w_pad)
-        else:
-            expand = CHAIN_OPS_PER_RUN * w_pad
-        cost = expand + (T * w_pad * 8 / GROUP) * OPS_PER_BYTE
-        if best_cost is None or cost < best_cost:
-            chosen, best_cost = (W, T, w_pad), cost
-    if chosen is None:
-        return None
-    W, T, w_pad = chosen
-
-    # First run covering each tile: lo[g,t] = #(ends <= t*W); real ends are
-    # strictly increasing, pad ends equal GROUP (bin T, inert for t < T).
-    te = -(-ends // W)  # run r is fully before tile t iff ceil(end/W) <= t
-    hist = np.zeros((ng, T + 1), np.int64)
-    np.add.at(hist, (np.arange(ng)[:, None], np.minimum(te, T)), 1)
-    lo = np.cumsum(hist, axis=1)[:, :T]
-    idx = lo[:, :, None] + np.arange(w_pad)[None, None, :]
-    np.clip(idx, 0, r_pad - 1, out=idx)
-    g_ix = np.arange(ng)[:, None, None]
-    vals_w = vals[g_ix, idx]
-    rel = ends[g_ix, idx] - (np.arange(T, dtype=np.int64) * W)[None, :, None]
-    ends_w = np.clip(rel, 0, W).astype(np.int32)
-    return {"vals_w": vals_w, "ends_w": ends_w}
-
-
-def _chain_call(rows: int, W: int, w_pad: int, lut_d_pad: int | None = None, out_dtype=jnp.uint32):
-    """One-pass run expansion: rows x (w_pad run table) -> rows x (W out).
-
-    ``lut_d_pad``: fused cascade dictionary stage — the expanded tile is
-    mapped through an in-VMEM gather before the store (table is the
-    returned callable's first argument; constant block index)."""
-    from ..registry import _VMEM_BUDGET
-    from ..util import cdiv, next_power_of_2
-    from .common import _SUBLANE_TILE, store
-
-    # Rows (tiles) are fully independent — each owns its run table — so
-    # this kernel blocks at ROW granularity with its own VMEM model rather
-    # than plan()'s group-granular one. Mosaic's stack allocator keeps
-    # roughly 0.4*w_pad live (rpb, W) intermediates for the unrolled select
-    # chain (measured: 24.8 MiB scoped at w_pad=64, rpb=512, W=512), so the
-    # per-row footprint scales with w_pad; under-accounting this OOM'd the
-    # hardware compile for w_pad > 32 while the CPU interpreter sailed on.
-    per_row = (6 + w_pad // 2) * W * 4 + 2 * w_pad * 4 * 2
-    if lut_d_pad:
-        per_row += 4 * lut_d_pad
-    rpb = max(8, next_power_of_2(max(_VMEM_BUDGET // per_row, 1) + 1) // 2)
-    rpb = rows if rows < 8 else min(rpb, rows)
-    sub = _SUBLANE_TILE[jnp.dtype(out_dtype).itemsize]
-    if rpb < rows and rpb % sub:  # narrow stores need sublane-tile rows
-        if rows <= sub:
-            rpb = rows
-        elif sub * per_row <= _VMEM_BUDGET:
-            rpb = sub
-        else:  # aligning would blow the VMEM budget — decline the narrow
-            out_dtype = jnp.uint32  # store (api._to_logical converts)
-    grid = cdiv(rows, rpb)
-
-    def kernel(*refs):
-        ends_ref, vals_ref, out_ref = refs[-3], refs[-2], refs[-1]
-        ends = ends_ref[:].astype(jnp.int32)
-        vals = vals_ref[:]
-        col = jax.lax.broadcasted_iota(jnp.int32, (rpb, W), 1)
-        out = jnp.broadcast_to(vals[:, 0:1], (rpb, W))
-        for k in range(1, w_pad):
-            out = jnp.where(col >= ends[:, k - 1 : k], vals[:, k : k + 1], out)
-        if lut_d_pad:
-            from .lanes import gather_lut
-
-            out = gather_lut(refs[0][:], out)
-        store(out_ref, out)
-
-    lut_specs = [block_spec((rpb, lut_d_pad), lambda i: (0, 0))] if lut_d_pad else []
-    call = pl.pallas_call(
-        kernel,
-        grid=(grid,),
-        in_specs=lut_specs + [
-            block_spec((rpb, w_pad), lambda i: (i, 0)),
-            block_spec((rpb, w_pad), lambda i: (i, 0)),
-        ],
-        out_specs=block_spec((rpb, W), lambda i: (i, 0)),
-        out_shape=jax.ShapeDtypeStruct((rows, W), out_dtype),
-        interpret=use_interpret(),
-    )
-    if lut_d_pad:
-        return lambda table, *a: call(jnp.broadcast_to(table, (rpb, lut_d_pad)), *a)
-    return call
-
-
-def _rank_call(rows: int, W: int, w_pad: int, lut_d_pad: int | None = None, out_dtype=jnp.uint32):
-    """One-pass run expansion by vectorized binary search — the TPU form of
-    libgiddy's per-thread binary search (``run_length_encoding.cuh``,
-    SURVEY.md CS-4), used when the run table is dense (w_pad > RANK_MIN).
-
-    rank[j] = #{ends <= j} via 7 branchless probes into the 128-lane-padded
-    ends table (each probe a within-tile dynamic gather; probe indices stay
-    < 128 by the search invariant, and pad entries carry the sentinel W
-    which no j < W reaches, so rank < w_pad always), then one gather of
-    ``vals[rank]``. Flat ~30 VPU-equivalent ops/element regardless of run
-    density — at w_pad = 128 the select chain costs ~8x that."""
-    from ..registry import _VMEM_BUDGET
-    from ..util import cdiv, next_power_of_2
-    from .common import _SUBLANE_TILE, store
-
-    per_row = 10 * W * 4 + 4 * 128 * 4
-    if lut_d_pad:
-        per_row += 4 * lut_d_pad
-    rpb = max(8, next_power_of_2(max(_VMEM_BUDGET // per_row, 1) + 1) // 2)
-    rpb = rows if rows < 8 else min(rpb, rows)
-    sub = _SUBLANE_TILE[jnp.dtype(out_dtype).itemsize]
-    if rpb < rows and rpb % sub:  # narrow stores need sublane-tile rows
-        if rows <= sub:
-            rpb = rows
-        elif sub * per_row <= _VMEM_BUDGET:
-            rpb = sub
-        else:
-            out_dtype = jnp.uint32
-    grid = cdiv(rows, rpb)
-    pad = 128 - w_pad
-
-    def _gather(tab, idx):
-        # Mosaic's gather lowering rejects operands under a full sublane
-        # tile (single-group columns reach here with rpb < 8, same as
-        # lanes.gather_lut's R==1 case): widen by row concatenation, slice
-        # back
-        if rpb >= 8:
-            return jnp.take_along_axis(tab, idx, axis=1, mode="promise_in_bounds")
-        reps = -(-8 // rpb)
-        t = jnp.concatenate([tab] * reps, axis=0)[:8]
-        i = jnp.concatenate([idx] * reps, axis=0)[:8]
-        return jnp.take_along_axis(t, i, axis=1, mode="promise_in_bounds")[:rpb]
-
-    def kernel(*refs):
-        ends_ref, vals_ref, out_ref = refs[-3], refs[-2], refs[-1]
-        ends = ends_ref[:].astype(jnp.int32)
-        vals = vals_ref[:]
-        if pad:
-            ends = jnp.concatenate(
-                [ends, jnp.full((rpb, pad), W, jnp.int32)], axis=1
-            )
-            vals = jnp.concatenate(
-                [vals, jnp.zeros((rpb, pad), jnp.uint32)], axis=1
-            )
-        outs = []
-        for s in range(W // 128):
-            col = jax.lax.broadcasted_iota(jnp.int32, (rpb, 128), 1) + jnp.int32(s * 128)
-            r = jnp.zeros((rpb, 128), jnp.int32)
-            step = 64
-            while step:
-                probe = r + jnp.int32(step - 1)
-                e = _gather(ends, probe)
-                r = r + jnp.where(e <= col, jnp.int32(step), jnp.int32(0))
-                step //= 2
-            outs.append(_gather(vals, r))
-        out = outs[0] if len(outs) == 1 else jnp.concatenate(outs, axis=1)
-        if lut_d_pad:
-            from .lanes import gather_lut
-
-            out = gather_lut(refs[0][:], out)
-        store(out_ref, out)
-
-    lut_specs = [block_spec((rpb, lut_d_pad), lambda i: (0, 0))] if lut_d_pad else []
-    call = pl.pallas_call(
-        kernel,
-        grid=(grid,),
-        in_specs=lut_specs + [
-            block_spec((rpb, w_pad), lambda i: (i, 0)),
-            block_spec((rpb, w_pad), lambda i: (i, 0)),
-        ],
-        out_specs=block_spec((rpb, W), lambda i: (i, 0)),
-        out_shape=jax.ShapeDtypeStruct((rows, W), out_dtype),
-        interpret=use_interpret(),
-    )
-    if lut_d_pad:
-        return lambda table, *a: call(jnp.broadcast_to(table, (rpb, lut_d_pad)), *a)
-    return call
-
-
-def _cumsum_rows_call(ng: int, lut_d_pad: int | None = None, out_dtype=jnp.uint32):
-    from .common import narrow_geom, store
-    from .lanes import scan_scratch_bytes
-
-    extra = 4 * lut_d_pad if lut_d_pad else 0
-    bpg = 2 * 4 * (GROUP + GROUP) + extra + scan_scratch_bytes()
-    pl_plan = plan(ng * GROUP, bpg)
-    geom = narrow_geom(GROUP, jnp.dtype(out_dtype).itemsize)
-    r = pl_plan.groups_per_block
-
-    def kernel(*refs):
-        out = group_cumsum(refs[-2][:])
-        if lut_d_pad:
-            from .lanes import gather_lut
-
-            out = gather_lut(refs[0][:], out)
-        store(refs[-1], out)
-
-    lut_specs = [block_spec((r, lut_d_pad), lambda i: (0, 0))] if lut_d_pad else []
-    if geom:
-        out_specs = block_spec((r, *geom), lambda i: (i, 0, 0))
-        out_shape = jax.ShapeDtypeStruct((ng, *geom), out_dtype)
-    else:
-        out_specs = block_spec((r, GROUP), lambda i: (i, 0))
-        out_shape = jax.ShapeDtypeStruct((ng, GROUP), out_dtype)
-    call = pl.pallas_call(
-        kernel,
-        grid=(pl_plan.grid,),
-        in_specs=lut_specs + [block_spec((r, GROUP), lambda i: (i, 0))],
-        out_specs=out_specs,
-        out_shape=out_shape,
-        interpret=use_interpret(),
-    )
-    if lut_d_pad:
-        return lambda table, *a: call(jnp.broadcast_to(table, (r, lut_d_pad)), *a)
-    return call
-
-
-def scatter_prep(run_values: "np.ndarray", bounds: "np.ndarray", *, positions: bool, ng_local: int | None = None) -> dict:
-    """Host-side fallback form: run tables -> (pos, dv) scatter pairs.
-
-    pos = shard-local flat position of each run start (padded runs land on
-    the sentinel GROUP, i.e. the next group's position 0 — harmless under
-    scatter-add since their value-jump dv is 0 by the padding rules).
-    dv = value jump at each start (uint32 wrap); cumsum(scatter(pos, dv))
-    reconstructs the column.
-    """
-    import numpy as np
-
-    ng, r_pad = bounds.shape
-    ng_local = ng if ng_local is None else ng_local
-    if positions:
-        starts = bounds.astype(np.int64)
-    else:
-        starts = np.concatenate(
-            [np.zeros((ng, 1), np.int64), bounds[:, :-1].astype(np.int64)], axis=1
-        )
-    vals = run_values.view(np.uint32)
-    prev = np.concatenate([np.zeros((ng, 1), np.uint32), vals[:, :-1]], axis=1)
-    dv = vals - prev
-    g_local = (np.arange(ng, dtype=np.int64) % ng_local).reshape(ng, 1)
-    pos = (g_local * GROUP + starts).astype(np.int32)
-    return {"pos": pos, "dv": dv}
+        ng = bounds.shape[0]
+        bounds = np.concatenate([bounds[:, 1:], np.full((ng, 1), GROUP, bounds.dtype)], axis=1)
+    return {"ends": bounds, "vals": run_values}
 
 
 def _prep(col: EncodedColumn, *, positions: bool) -> dict:
-    if "vals_w" in col.streams or "pos" in col.streams:
-        return col.streams  # already in tile / scatter (dist/slice) form
+    if "ends" in col.streams:
+        return col.streams  # already in device (dist/slice) form
     r_pad = col.params["r_pad"]
     ng = num_groups(col.n)
     key = "run_starts" if positions else "run_ends"
-    bounds = col.streams[key].reshape(ng, r_pad)
-    vals = col.streams["run_values"].reshape(ng, r_pad)
-    pre = tile_prep(vals, bounds, positions=positions)
-    if pre is not None:
-        return pre
-    return scatter_prep(vals, bounds, positions=positions)
+    return run_tables(
+        col.streams["run_values"].reshape(ng, r_pad),
+        col.streams[key].reshape(ng, r_pad),
+        positions=positions,
+    )
 
 
-def _build(col: EncodedColumn, *, positions: bool, out_store=None):
+def build(col: EncodedColumn, out_store=None):
     ng = num_groups(col.n)
-    lut = col.params.get("_lut_d_pad")  # cascade's fused dictionary stage
     out_dt = out_store or jnp.uint32
 
     def decode(streams):
-        args = (streams["_lut"],) if lut else ()
-        if "vals_w" in streams:  # single-pass tile-chain path
-            vals, ends = streams["vals_w"], streams["ends_w"]
-            if vals.ndim == 3:  # (ng, T, w_pad) dist/slice layout
-                vals = vals.reshape(-1, vals.shape[-1])
-                ends = ends.reshape(-1, ends.shape[-1])
-            rows, w_pad = vals.shape
-            W = (ng * GROUP) // rows
-            # chain below RANK_MIN (cheaper) and above 128 (the 7-probe
-            # search addresses one 128-lane table; a raised
-            # GIDDY_TPU_RLE_CHAIN_HARD must keep working via the chain)
-            expand = _rank_call if RANK_MIN < w_pad <= 128 else _chain_call
-            return expand(rows, W, w_pad, lut, out_dt)(*args, ends, vals).reshape(ng * GROUP)
-        # fallback: sparse delta scatter + dense per-group cumsum
-        dense = jnp.zeros((ng * GROUP,), jnp.uint32)
-        # flattened scatter positions are nondecreasing by construction
-        # (run starts ascend within a group; padded runs land on the next
-        # group boundary, dv = 0) — the hint lets XLA skip its sort pass.
-        # Not unique: padding sentinels collide with first-run starts.
-        dense = dense.at[streams["pos"].astype(jnp.int32).reshape(-1)].add(
-            streams["dv"].reshape(-1), mode="drop", indices_are_sorted=True
-        )
-        return _cumsum_rows_call(ng, lut, out_dt)(*args, dense.reshape(ng, GROUP)).reshape(ng * GROUP)
+        ends = streams["ends"].reshape(ng, -1).astype(jnp.int32)
+        vals = streams["vals"].reshape(ng, -1)
+        return expand_runs(ends, vals).astype(out_dt).reshape(ng * GROUP)
 
     return decode
 
 
-def build_rle(col: EncodedColumn, out_store=None):
-    return _build(col, positions=False, out_store=out_store)
-
-
-def build_rpe(col: EncodedColumn, out_store=None):
-    return _build(col, positions=True, out_store=out_store)
-
-
-registry.register_device("rle", build_rle, lambda col: _prep(col, positions=False), narrow_store=True)
-registry.register_device("rpe", build_rpe, lambda col: _prep(col, positions=True), narrow_store=True)
+registry.register_device("rle", build, lambda col: _prep(col, positions=False), narrow_store=True)
+registry.register_device("rpe", build, lambda col: _prep(col, positions=True), narrow_store=True)

@@ -1,17 +1,16 @@
-"""XOR-delta — Pallas decoder (FORMAT.md §1.15; beyond-parity scheme).
+"""XOR-delta — device decoder (FORMAT.md §1.15; beyond-parity scheme).
 
-Gorilla-style float compression recast for the TPU: the decoder is the
-delta kernel with the adds swapped for XORs — unpack, per-group
-prefix-XOR log-scan, XOR the anchor. Same anchor machinery, same
-zero-cross-tile-dependency story, so sharding works unchanged.
+Gorilla-style float compression: the decoder is the delta decoder with
+the adds swapped for XORs — unpack, per-group prefix-XOR, XOR the anchor.
+Same anchor machinery, same zero-cross-group-dependency story, so
+sharding works unchanged.
 """
 
 from __future__ import annotations
 
 from .. import registry
 from ..format import EncodedColumn
-from ..util import GROUP, LANES, num_groups
-from .common import row_blocked_call
+from ..util import GROUP, num_groups
 from .lanes import group_cumxor, unpack_lanes
 
 
@@ -19,15 +18,10 @@ def build(col: EncodedColumn):
     bits = col.params["bits"]
     ng = num_groups(col.n)
 
-    def kernel(in_ref, anchor_ref, out_ref):
-        z = unpack_lanes(in_ref[:], bits)
-        out_ref[:] = group_cumxor(z, bits) ^ anchor_ref[:]
-
-    call = row_blocked_call(kernel, ng=ng, in_widths=[bits * LANES, 1])
-
     def decode(streams):
+        z = unpack_lanes(streams["packed"], bits)
         anchors = streams["anchors"].reshape(ng, 1)
-        return call(streams["packed"], anchors).reshape(ng * GROUP)
+        return (group_cumxor(z) ^ anchors).reshape(ng * GROUP)
 
     return decode
 

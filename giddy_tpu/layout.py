@@ -31,7 +31,7 @@ def scatter(out: jax.Array, idx: jax.Array, vals: jax.Array) -> jax.Array:
 def bitmap_to_indices(bits: jax.Array, max_count: int) -> tuple[jax.Array, jax.Array]:
     """Dense 0/1 vector -> (indices, count), fixed-size output.
 
-    TPU-shaped compaction: rank = exclusive cumsum of the mask; index j
+    Vector-shaped compaction: rank = exclusive cumsum of the mask; index j
     lands at slot rank[j]. Slots >= count hold len(bits) (a sentinel).
     """
     n = bits.shape[0]

@@ -28,20 +28,25 @@ def _build() -> ctypes.CDLL | None:
     tag = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
     out = _SRC.parent / f"_lmp_{tag}.so"
     if not out.exists():
+        # build under a per-process name, then rename into place: parallel
+        # test workers must never load another process's half-written file
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [
             "g++", "-O3", "-march=native", "-fopenmp", "-shared", "-fPIC",
-            str(_SRC), "-o", str(out),
+            str(_SRC), "-o", str(tmp),
         ]
         try:
             subprocess.run(cmd, check=True, capture_output=True, timeout=120)
         except Exception:
             try:  # retry without openmp/march (portability)
                 subprocess.run(
-                    ["g++", "-O3", "-shared", "-fPIC", str(_SRC), "-o", str(out)],
+                    ["g++", "-O3", "-shared", "-fPIC", str(_SRC), "-o", str(tmp)],
                     check=True, capture_output=True, timeout=120,
                 )
             except Exception:
+                tmp.unlink(missing_ok=True)
                 return None
+        os.replace(tmp, out)
     lib = ctypes.CDLL(str(out))
     u32p = np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS")
     i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")

@@ -66,25 +66,6 @@ class GroupSlicer:
             for k in (1, 2, 3)
             if plane_lens[k]
         }
-        # whole-column layout parameters so every equal-size slice shares
-        # one jit specialization (strides/widths from a slice's own max
-        # count would be data-dependent): tile strides first (round-5 tile
-        # layout), group-row widths as the fallback
-        from .kernels.dzbv import TILE, global_tile_s, global_w4
-
-        self._dz_tile_s = global_tile_s(
-            {
-                k: (wp.reshape(-1, TILE) > k).sum(axis=1)
-                for k in (1, 2, 3)
-                if plane_lens[k]
-            },
-            ragged=col.n < self.ng * GROUP,
-        )
-        self._dz_w4 = (
-            None
-            if self._dz_tile_s is not None
-            else global_w4({k: np.diff(c) for k, c in self._dz_cum.items()})
-        )
         self._pos = self._val = None
 
     def _slice_dzbv(self, g0: int, g1: int) -> EncodedColumn:
@@ -120,19 +101,6 @@ class GroupSlicer:
             params={"plane_lens": plane_lens},
             streams=streams,
         )
-        # slices ride the single-pass kernels too (GroupSlicer.decode
-        # bypasses prep hooks, so the re-layout happens here); tile strides
-        # / row widths are pinned from whole-column statistics so
-        # equal-size chunks share one jit specialization, and the PAD_CAP
-        # decisions were made globally in _init_dzbv
-        if self._dz_tile_s is not None:
-            from .kernels.dzbv import tile_prep
-
-            sub.streams = tile_prep(sub, force_s=self._dz_tile_s)
-        elif self._dz_w4 is not None:
-            from .kernels.dzbv import group_prep
-
-            sub.streams = group_prep(sub, force_w4=self._dz_w4)
         return sub
 
     def _decode_patches_once(self):
@@ -171,9 +139,6 @@ class GroupSlicer:
         streams: dict[str, np.ndarray] = {}
         for k, v in df.sharded.items():
             streams[k] = v[:, g0:g1] if df.bitmap_axis1 and k == "bitmaps" else v[g0:g1]
-        for pk in ("pos", "c_pos"):  # rle/rpe scatter positions are group-local
-            if pk in streams:  # flats (c_ = nested inside a cascade column)
-                streams[pk] = streams[pk] - np.int32(g0 * GROUP)
         streams.update(df.replicated)
         sub = EncodedColumn(
             name=f"{col.name}[{g0}:{g1}]",

@@ -1,14 +1,14 @@
-"""Predicate pushdown: decode-and-filter in one fused kernel.
+"""Predicate pushdown: decode-and-filter in one fused program.
 
 libgiddy exists to feed DBMS scans (SURVEY.md §1 — MonetDB columns); the
-natural TPU extension is evaluating the scan predicate *inside* the decode
-kernel so the full-width column never touches HBM: the kernel reads the
-packed stream and writes a 1-bit incidence bitmap (LMP(1) layout, 1/32 of
+natural extension is evaluating the scan predicate *inside* the decode
+program so the full-width column never touches HBM: XLA fuses the unpack and
+compare into one pass that reads the packed stream and writes a 1-bit incidence bitmap (LMP(1) layout, 1/32 of
 the decoded bytes). Supported for the unpack-epilogue schemes (nbit, dzbf,
 for); other schemes fall back to decode + compare in one jit.
 
-The comparison value rides in at runtime (SMEM scalar / jit argument), so
-scanning many thresholds reuses ONE compiled kernel per (column, op).
+The comparison value rides in at runtime (a jit argument), so scanning
+many thresholds reuses ONE compiled program per (column, op).
 Comparisons follow the column's logical dtype semantics, including
 sign-extension of narrow (int8/int16) payloads. 64-bit ``wide`` columns
 compare plane-split: both 32-bit planes decode on device and the 64-bit
@@ -22,7 +22,7 @@ Dictionary-backed columns (dict and cascade) get a **dict-domain
 pushdown**: the predicate is evaluated over the dictionary host-side
 (O(dict_size)) and rewritten as code range scans — the value gather never
 runs, and when the code scheme is nbit/for/dzbf the scan is the fused
-epilogue kernel. Fragmented match sets (possible only with unsorted
+epilogue program. Fragmented match sets (possible only with unsorted
 explicit dictionaries) fall back to decode+compare.
 """
 
@@ -33,7 +33,6 @@ import jax.numpy as jnp
 import numpy as np
 
 from .format import EncodedColumn
-from .registry import plan
 from .util import GROUP, LANES, SLOTS, np_dtype, num_groups
 
 _OPS = ("eq", "ne", "lt", "le", "gt", "ge")
@@ -54,8 +53,7 @@ def _cmp(v, c, op: str, kind: str, itemsize: int):
     zero-extended at encode; sign-extend with an arithmetic shift pair
     before comparing. Float payloads map through the total-order key —
     ``c`` must arrive already in comparison form (int32 for signed,
-    total-order-mapped uint32 for floats), prepared host-side, since
-    Mosaic cannot bitcast scalars in-kernel."""
+    total-order-mapped uint32 for floats), prepared host-side."""
     if kind == "i":
         v = jax.lax.bitcast_convert_type(v, jnp.int32)
         k = 32 - 8 * itemsize
@@ -70,11 +68,9 @@ def _cmp(v, c, op: str, kind: str, itemsize: int):
 
 
 def _epilogue_filter_call(col: EncodedColumn, op: str):
-    """Fused unpack+compare kernel -> (ng, LANES) bitmap words; the
-    comparison value arrives as an SMEM scalar at runtime."""
-    from jax.experimental import pallas as pl
-
-    from .kernels.common import block_spec, smem_spec, use_interpret
+    """Fused unpack+compare -> (ng, LANES) bitmap words; the comparison
+    value arrives as a traced (1, 1) argument, so every threshold reuses
+    one compiled program per (column, op)."""
     from .kernels.lanes import unpack_fold
 
     scheme = col.scheme
@@ -82,48 +78,20 @@ def _epilogue_filter_call(col: EncodedColumn, op: str):
     ng = num_groups(col.n)
     dt = np_dtype(col.dtype)
     kind, itemsize = dt.kind, dt.itemsize
-    pl_plan = plan(ng * GROUP, 2 * 4 * ((bits + 1 + 1) * LANES))
-    r = pl_plan.groups_per_block
 
-    def body(x, ref, val):
+    def call(streams, val):
+        ref = streams["refs_g"] if scheme == "for" else None
+        c = val[0, 0]
+
         def fold(acc, v, i):
             if ref is not None:
                 v = v + ref
-            hit = _cmp(v, val, op, kind, itemsize).astype(jnp.uint32)
+            hit = _cmp(v, c, op, kind, itemsize).astype(jnp.uint32)
             return acc | (hit << jnp.uint32(i))
 
-        init = jnp.zeros((x.shape[0], LANES), jnp.uint32)
-        return unpack_fold(x, bits, fold, init)
+        return unpack_fold(streams["packed"], bits, fold, jnp.zeros((ng, LANES), jnp.uint32))
 
-    if scheme == "for":
-
-        def kernel(val_ref, in_ref, ref_ref, out_ref):
-            ref = jnp.broadcast_to(ref_ref[:], (ref_ref.shape[0], LANES))
-            out_ref[:] = body(in_ref[:], ref, val_ref[0, 0])
-
-        in_specs = [smem_spec((1, 1), lambda i: (0, 0)),
-                    block_spec((r, bits * LANES), lambda i: (i, 0)),
-                    block_spec((r, 1), lambda i: (i, 0))]
-    else:
-
-        def kernel(val_ref, in_ref, out_ref):
-            out_ref[:] = body(in_ref[:], None, val_ref[0, 0])
-
-        in_specs = [smem_spec((1, 1), lambda i: (0, 0)),
-                    block_spec((r, bits * LANES), lambda i: (i, 0))]
-
-    call = pl.pallas_call(
-        kernel,
-        grid=(pl_plan.grid,),
-        in_specs=in_specs,
-        out_specs=block_spec((r, LANES), lambda i: (i, 0)),
-        out_shape=jax.ShapeDtypeStruct((ng, LANES), jnp.uint32),
-        interpret=use_interpret(),
-    )
-
-    if scheme == "for":
-        return lambda streams, val: call(val, streams["packed"], streams["refs_g"])
-    return lambda streams, val: call(val, streams["packed"])
+    return call
 
 
 def _wide_hits(lo, hi, clo, chi_u, kind: str, op: str):

@@ -14,10 +14,10 @@ plus a tiny per-element ulp correction:
   FOR-style (per-GROUP min refs + LMP-packed offsets — decimals cluster);
 - the device-reproducible approximation is ``m = f32(enc) * f32(10^-e)``
   — int→f32 convert and f32 multiply are single correctly-rounded IEEE
-  ops, bit-identical on the host and the TPU VPU. TRUE division would
-  round-trip decimals exactly, but TPU f32 division is reciprocal-based
-  and not correctly rounded (measured: one-ulp disagreements), so the
-  decode must not divide;
+  ops, bit-identical on the host and the device. TRUE division would
+  round-trip decimals exactly, but device f32 division need not be
+  correctly rounded (reciprocal-based division disagrees by one ulp), so
+  the decode must not divide;
 - ``m`` is within ~1 ulp of ``v`` for decimal data, so the *bitpattern
   difference* ``corr = bits(v) - bits(m)`` is tiny (measured: zigzag fits
   2 bits with zero exceptions on price-like data). It ships as an

@@ -3,7 +3,7 @@
 Upstream analog: libgiddy ``src/kernels/decompression/incidence_bitmaps.cuh``
 (SURVEY.md §3.1): one bitmap per distinct value; bit j of bitmap d set iff
 out[j] == values[d]. Bitmaps are stored in the LMP(1) layout so decode is D
-1-bit unpacks + multiply-accumulate — pure VPU, no ballot needed.
+1-bit unpacks + multiply-accumulate — elementwise, no ballot needed.
 """
 
 from __future__ import annotations

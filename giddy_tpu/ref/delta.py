@@ -3,8 +3,8 @@
 Upstream analog: libgiddy ``src/kernels/decompression/delta.cuh``
 (SURVEY.md §3.1): narrow deltas + periodic anchor side stream so segments
 decode independently. Here the anchor period is the GROUP tile, making every
-Pallas grid step (and every chip in the multi-host mesh) scan-free across
-tile boundaries — the cumsum is entirely tile-local.
+group (and every device in a mesh) scan-free across group boundaries — the
+cumsum is entirely group-local.
 """
 
 from __future__ import annotations

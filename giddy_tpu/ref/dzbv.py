@@ -3,7 +3,7 @@
 Upstream analog: libgiddy
 ``src/kernels/decompression/discard_zero_bytes_variable.cuh`` (SURVEY.md
 §3.1): per-element byte width in a 2-bit side stream — i.e. varint.
-TPU-first redesign: instead of per-element byte offsets (prefix-sum into a
+Vector-first redesign: instead of per-element byte offsets (prefix-sum into a
 byte gather, hostile to vector units), the encoder emits compacted
 byte *planes*; decode is a rank cumsum + one gather per plane (FORMAT §1.10).
 """

@@ -1,8 +1,8 @@
 """Lane-major packed-group (LMP) layout — NumPy reference implementation.
 
-This is the bit-exactness oracle for the Pallas unpack kernels and the shared
+This is the bit-exactness oracle for the device unpack and the shared
 packing facility of every bit-packed stream (FORMAT.md §0.1). It is the
-TPU-first replacement for libgiddy's per-thread bfe/funnel-shift packed-int
+vector-first replacement for libgiddy's per-thread bfe/funnel-shift packed-int
 access (upstream ``src/cuda/on_device/ptx.cuh`` bit-field-extract per
 SURVEY.md §3.6): the interleave happens at encode time so decode is pure
 full-vector shift/mask.

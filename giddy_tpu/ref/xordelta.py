@@ -5,9 +5,9 @@ compression, Pelkonen et al., VLDB'15): consecutive bitpatterns XOR — for
 slowly varying floats the sign/exponent/high-mantissa bits cancel, so the
 XOR stream concentrates in the low bits and LMP-packs narrow. Decode is a
 per-group inclusive prefix-XOR — the SAME tile-local log-scan shape as
-delta (XOR is associative with identity 0), so the kernel rides the
+delta (XOR is associative with identity 0), so the decoder rides the
 existing anchor machinery unchanged. Unlike Gorilla's bit-serial varint,
-the fixed per-column width keeps the TPU decode fully vectorized.
+the fixed per-column width keeps the device decode fully vectorized.
 """
 
 from __future__ import annotations

@@ -1,9 +1,8 @@
-"""Scheme registry + decode planning.
+"""Scheme registry.
 
-TPU-native analog of libgiddy's kernel factory/registry and
-launch-configuration resolution (upstream ``src/kernel_wrappers/`` +
-``static_block`` registration, ``resolve_launch_configuration`` — SURVEY.md
-§3.8). Differences, by design:
+Analog of libgiddy's kernel factory/registry (upstream
+``src/kernel_wrappers/`` + ``static_block`` registration — SURVEY.md §3.8).
+Differences, by design:
 
 - Registration is a decorator at import time (the analog of the reference's
   static-initializer ``static_block`` trick; linking a TU becomes importing
@@ -12,9 +11,8 @@ launch-configuration resolution (upstream ``src/kernel_wrappers/`` +
   reference bakes into C++ template instantiations are *runtime metadata*
   here — jit specialization plays the role of template instantiation, and
   the jit cache is the instantiated-kernel table.
-- ``plan()`` is the launch-config resolver: it picks the Pallas grid/block
-  shape (groups per block) from the problem size and a VMEM budget instead
-  of CUDA occupancy math.
+- There is no launch configuration to resolve: every decoder is a plain
+  XLA program over whole arrays, and XLA picks the GPU launch shapes.
 """
 
 from __future__ import annotations
@@ -25,7 +23,6 @@ from typing import Any, Callable
 import numpy as np
 
 from .format import EncodedColumn
-from .util import GROUP, cdiv, num_groups
 
 
 @dataclasses.dataclass
@@ -81,45 +78,3 @@ def get(scheme: str) -> Codec:
 
 def schemes() -> list[str]:
     return sorted(_REGISTRY)
-
-
-@dataclasses.dataclass(frozen=True)
-class Plan:
-    """Resolved launch configuration for a Pallas decode (SURVEY.md §3.8)."""
-
-    n_groups: int
-    groups_per_block: int  # Pallas block = this many GROUPs
-    grid: int  # number of grid steps
-
-    @property
-    def block_values(self) -> int:
-        return self.groups_per_block * GROUP
-
-
-# VMEM budget for one decode block's working set (in+out+slack), bytes.
-# v5p/v5e have ~16-32 MiB VMEM/core; Pallas double-buffers blocks, so stay
-# well under half. Tunable per chip via GIDDY_TPU_VMEM_BUDGET (bytes).
-import os as _os
-
-_VMEM_BUDGET = int(_os.environ.get("GIDDY_TPU_VMEM_BUDGET", 6 * 1024 * 1024))
-
-
-def plan(n: int, bytes_per_group: int) -> Plan:
-    """Pick groups-per-block so the working set fits the VMEM budget.
-
-    ``bytes_per_group`` = total VMEM bytes one group needs (packed input
-    block + output block + scratch). Mosaic requires block dims divisible
-    by 8 (sublane tile) or equal to the array dim; grid*block may exceed
-    the array (Pallas masks the ragged tail), so gpb is a power of two
-    >= 8 — or the whole array when it is smaller than one tile row.
-    """
-    ng = num_groups(n)
-    gpb = max(1, _VMEM_BUDGET // max(bytes_per_group, 1))
-    while gpb & (gpb - 1):  # round down to a power of two
-        gpb &= gpb - 1
-    if ng <= max(gpb, 8):
-        # one block covering everything (block dim == array dim is exempt
-        # from the divisibility rule)
-        return Plan(n_groups=ng, groups_per_block=ng, grid=1)
-    gpb = max(gpb, 8)
-    return Plan(n_groups=ng, groups_per_block=gpb, grid=cdiv(ng, gpb))

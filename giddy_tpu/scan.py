@@ -1,9 +1,9 @@
 """Standalone scan/reduction ops (SURVEY.md §3.5: the reference's
 ``src/kernels/reduction`` standalone prefix-sum/reduce kernels).
 
-These are the public, jittable versions of the in-kernel utilities the
-decoders use: per-group (tile-local) inclusive prefix sum on the VPU
-log-scan, and a grouped reduction. Both accept flat arrays of any length
+These are the public, jittable versions of the utilities the decoders
+use: per-group (tile-local) inclusive prefix sum, and a grouped
+reduction. Both accept flat arrays of any length
 (padded internally to GROUP tiles).
 """
 
@@ -13,14 +13,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from .kernels.rle import _cumsum_rows_call
+from .kernels.lanes import group_cumsum
 from .util import GROUP, num_groups
 
 
 def group_prefix_sum(x, *, exclusive: bool = False):
     """Inclusive (or exclusive) prefix sum within each GROUP tile,
-    wrapping uint32 — the backbone primitive of delta/RLE decode, exposed
-    (Pallas log-scan per 32768-element tile)."""
+    wrapping uint32 — the backbone primitive of delta decode, exposed."""
     x = jnp.asarray(x)
     n = x.shape[0]
     ng = num_groups(n)
@@ -28,7 +27,7 @@ def group_prefix_sum(x, *, exclusive: bool = False):
     xu = jax.lax.bitcast_convert_type(x.astype(jnp.int32), jnp.uint32) if x.dtype != jnp.uint32 else x
     if pad:
         xu = jnp.concatenate([xu, jnp.zeros((pad,), jnp.uint32)])
-    out = _cumsum_rows_call(ng)(xu.reshape(ng, GROUP)).reshape(-1)
+    out = group_cumsum(xu.reshape(ng, GROUP)).reshape(-1)
     if exclusive:
         out = out - xu
     return out[:n]

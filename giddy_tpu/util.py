@@ -1,17 +1,21 @@
 """Host utility layer.
 
-TPU-native equivalent of libgiddy's ``src/util/`` (integer.h exact-width
+Equivalent of libgiddy's ``src/util/`` (integer.h exact-width
 ints, math.hpp div_rounding_up/ilog2, endianness.h — per SURVEY.md §3.9;
 upstream mount was empty, paths are recollected). Everything here is plain
-Python/NumPy; device-side helpers live in ``giddy_tpu.kernels.lanes``.
+Python/NumPy (the compile-cache helper imports JAX when called);
+device-side helpers live in ``giddy_tpu.kernels.lanes``.
 """
 
 from __future__ import annotations
 
+import os
+import pathlib
+
 import numpy as np
 
 # Fundamental layout constants (FORMAT.md §0). Frozen by the format spec.
-LANES = 1024  # interleave lanes C (8 hardware lane-tiles of 128)
+LANES = 1024  # interleave lanes C
 SLOTS = 32  # values per lane per group S
 GROUP = LANES * SLOTS  # 32768 — the independently-decodable tile
 WORD_BITS = 32
@@ -77,7 +81,7 @@ def num_groups(n: int) -> int:
     return cdiv(max(n, 1), GROUP)
 
 
-# Device positions/iotas are int32 (Mosaic has no int64 vectors): a single
+# Device positions/iotas are int32 (JAX runs without 64-bit mode): a single
 # device decode call addresses at most 2**31 padded elements. Larger
 # columns go through partial/stream (group slices) — the libgiddy
 # ``IndexSize`` analog is chunking, not wider device indices.
@@ -180,3 +184,22 @@ def unzigzag(z: np.ndarray) -> np.ndarray:
     return ((z >> U32(1)) ^ (-(z & U32(1)).astype(np.int32)).astype(np.uint32)).astype(
         np.int32
     )
+
+
+def enable_compile_cache() -> str:
+    """Turn on JAX's persistent compilation cache and return its directory.
+
+    When ``JAX_COMPILATION_CACHE_DIR`` is set, JAX reads it itself and no
+    other directory is set here. Otherwise the cache lives at the fixed
+    path ``<checkout>/.jax_cache`` (git-ignored), never one built from a
+    temp name, a pid or the time, so a later run in the same checkout
+    finds what an earlier one compiled."""
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
+    import jax
+
+    path = str(pathlib.Path(__file__).resolve().parent.parent / ".jax_cache")
+    jax.config.update("jax_compilation_cache_dir", path)
+    return path
+

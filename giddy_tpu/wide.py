@@ -2,7 +2,7 @@
 
 The CUDA reference's kernels are templated over element widths up to 64
 bits (SURVEY.md §3.1 "parameterized on IndexSize and element types"). The
-TPU compute path is 32-bit (Mosaic has no native int64 vectors), so a wide
+device compute path is 32-bit (JAX runs without 64-bit mode), so a wide
 column splits into **lo/hi 32-bit planes at encode time**, each plane
 encoded independently with any base scheme — per-plane decode is exact, so
 ``v = lo | hi << 32`` reconstructs losslessly, and the hi plane of
@@ -91,7 +91,7 @@ def decode_ref(col: EncodedColumn) -> np.ndarray:
 
 
 def decode_device(col: EncodedColumn, *, pad: bool = False) -> np.ndarray:
-    """Device decode of both planes (jitted Pallas), host recombine.
+    """Device decode of both planes (jitted XLA), host recombine.
     Returns a NumPy array (int64 lives outside the device hot path);
     pad=True keeps the whole-GROUP-aligned n_pad length."""
     from .api import device_streams, get_decoder

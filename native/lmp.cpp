@@ -1,6 +1,6 @@
 // Native host codec hot loops — lane-major packed-group (LMP) layout.
 //
-// The TPU-native analog of libgiddy's host-side packed-int facilities
+// The analog of libgiddy's host-side packed-int facilities
 // (upstream src/util/integer.h + the encode path the library leaves to the
 // host — SURVEY.md §1 "decode-only", §3.9). The NumPy reference in
 // giddy_tpu/ref/lmp.py is normative; this file must match it bit-for-bit

@@ -1,6 +1,6 @@
 """Device decoder vs CPU oracle: bit-exact on every scheme
-(SURVEY.md §5.2.2 — the core equivalence suite). Runs the identical Pallas
-kernels in interpreter mode on the CPU backend."""
+(SURVEY.md §5.2.2 — the core equivalence suite). Runs the same XLA
+programs the GPU runs, compiled by XLA:CPU."""
 
 import numpy as np
 import pytest

@@ -2,7 +2,7 @@
 path without a cluster (SURVEY.md §5.2.3, call stack CS-5).
 
 Runs in a subprocess because the parent pytest process may already hold a
-single-device TPU backend; the checks need JAX_PLATFORMS=cpu with
+single-device GPU backend; the checks need JAX_PLATFORMS=cpu with
 --xla_force_host_platform_device_count=8 set before jax import.
 """
 

@@ -1,4 +1,4 @@
-"""Device (Pallas) encode vs host oracle: bit-identical streams."""
+"""Device encode vs host oracle: bit-identical streams."""
 
 import numpy as np
 import pytest

@@ -59,7 +59,7 @@ def test_float32_predicates_match_numpy():
         for thr in (0.0, -12.5, 37.25):
             assert count_where(col, op, thr) == int(f(v, thr).sum()), (op, thr)
     np.testing.assert_array_equal(where_mask(col, "lt", 0.0), v < 0)
-    # fused Pallas path (nbit) as well
+    # fused unpack+compare path (nbit) as well
     col2 = gt.encode(v, "nbit")
     assert count_where(col2, "gt", 10.0) == int((v > 10.0).sum())
 

@@ -1,4 +1,4 @@
-"""Storage-width materialization (round 3): int8/int16 full-column decode
+"""Storage-width materialization: int8/int16 full-column decode
 stores at 1/2 bytes per element instead of padded uint32 + convert pass —
 the output-side analog of the reference's element-type template
 specialization (SURVEY.md §3.1). The fused scan layer's uint32 payload
@@ -50,7 +50,7 @@ def test_narrow_store_engages_and_is_exact(scheme, dt):
 
 
 def test_cascade_fused_lut_narrow():
-    # the lut+narrow path stages full-width codes through VMEM scratch
+    # cascade(rle) codes decode full width; only the gathered values narrow
     base = (np.arange(N // 8, dtype=np.int64) % 90).astype(np.int16)
     v = np.repeat(base, 8)[:N]
     col = gt.encode(v, "cascade", codes_scheme="rle")
@@ -88,13 +88,9 @@ def test_u32_contract_callers_unaffected():
     "scheme", ["delta", "rle", "dict", "bitmap", "dzbv", "nbit", "patched"]
 )
 def test_narrow_engages_on_multigrid(scheme):
-    """Round 5: EVERY narrow scheme keeps its store at multi-grid sizes.
-    Sublane ROW alignment would multiply a scan-heavy block's working set
-    (the round-4 decline for delta/rle/dzbv); the 3D narrow geometry
-    (common.narrow_geom) instead folds the minor dim into sublane rows,
-    so the plan — and its VMEM footprint — is untouched at any
-    groups_per_block."""
-    n = 40 * GROUP + 5  # grid > 1 at gpb 8; row alignment would blow VMEM
+    """EVERY narrow scheme keeps its narrow store at many groups: the
+    output dtype is 1 or 2 bytes and the values exact."""
+    n = 40 * GROUP + 5
     rng = np.random.default_rng(21)
     if scheme == "delta":
         v = (np.arange(n) % 120).astype(np.int8)
@@ -118,7 +114,7 @@ def test_narrow_engages_on_multigrid(scheme):
 
 
 def test_narrow_multiblock_grid():
-    """ng above the int8 sublane tile: the grid>1 aligned narrow plan."""
+    """Many groups, a uint8 column: the store stays uint8 and exact."""
     n = 40 * GROUP + 13
     rng = np.random.default_rng(13)
     v = rng.integers(0, 200, n).astype(np.uint8)

@@ -1,5 +1,5 @@
-"""Ragged Pallas grids: group counts that don't divide the block size
-(regression for the 127-group dzbv lowering failure)."""
+"""Odd group counts: columns whose group count divides no power of two
+(regression for a 127-group dzbv lowering failure)."""
 
 import numpy as np
 import pytest

@@ -145,33 +145,29 @@ def test_dist_args_cache_bounded_and_memoized():
     assert len(dist_query._ARGS_CACHE) <= dist_query._ARGS_CACHE_MAX
 
 
-def test_rle_chain_hard_env_raised(monkeypatch):
-    """A raised GIDDY_TPU_RLE_CHAIN_HARD must keep decoding (round-4
-    review): the 7-probe binary search addresses one 128-lane table, so
-    w_pad > 128 tables must route back to the select chain."""
-    from giddy_tpu.kernels import rle
-
-    monkeypatch.setattr(rle, "CHAIN_HARD", 256)
+def test_rle_chain_hard_env_raised():
+    """Dense runs (length 2: thousands of runs per group) decode through
+    the per-group run-table search at its deepest: r_pad past 128, the
+    old select-chain/128-lane-search ceiling, must stay exact."""
     v = (np.arange(3 * GROUP, dtype=np.int64) // 2).astype(np.int32) % 40000
     col = gt.encode(v, "rle")
     streams = gt.api.device_streams(col)
-    assert "vals_w" in streams and streams["vals_w"].shape[-1] > 128, streams[
-        "vals_w"
-    ].shape
+    assert streams["ends"].shape[-1] > 128, streams["ends"].shape
     np.testing.assert_array_equal(np.asarray(gt.decode(col)), v)
 
 
-def test_ops_budget_padded_normalization():
-    """ops_budget and ops_audit normalize by the same (padded) element
-    count, so ragged tails cannot dilute the memory-bound verdict."""
-    from giddy_tpu.roofline import ops_budget
+def test_rle_rank_stays_in_table():
+    """The run-table search's invariant: every group's last run ends at
+    the GROUP sentinel, so each element's rank indexes a real run."""
+    import jax.numpy as jnp
 
-    v = np.arange(GROUP + 1, dtype=np.int32)
-    col = gt.encode(v, "nbit")
-    b = ops_budget(col)
-    # 2 padded groups x ~17/32 bits + 4-byte out: bytes/elem must reflect
-    # the padded write (~4.6), not the n-normalized ~9.2
-    assert 4.0 < b["bytes_per_elem"] < 6.5, b
+    from giddy_tpu.kernels.rle import expand_runs
+
+    ends = np.array([[5, GROUP, GROUP, GROUP, GROUP, GROUP, GROUP, GROUP]], np.int32)
+    vals = np.array([[7, 9, 0, 0, 0, 0, 0, 0]], np.uint32)
+    out = np.asarray(expand_runs(jnp.asarray(ends), jnp.asarray(vals)))
+    np.testing.assert_array_equal(out[0, :5], 7)
+    np.testing.assert_array_equal(out[0, 5:], 9)
 
 
 def test_model_extreme_span_ascending_frame():
@@ -186,13 +182,12 @@ def test_model_extreme_span_ascending_frame():
 
 
 def test_dzbv_tile_layout_full_tile_rank_clamp():
-    """Round 5 tile layout: a tile whose plane count saturates its stride
-    leaves trailing unselected lanes with rank == s; their (discarded)
-    gather index must stay inside the 128-lane window."""
-    v = np.full(2 * GROUP, 300, np.uint32)  # all 2-byte: plane1 full tiles
+    """A plane that every element but a few selects: the unselected
+    elements after the last selected one carry rank == plane length, one
+    past the plane's end; their (discarded) gather index must be clamped,
+    and the decode stay exact."""
+    v = np.full(2 * GROUP, 300, np.uint32)  # all 2-byte: plane1 nearly full
     v[::7] = 5
+    v[-3:] = 5
     col = gt.encode(v.view(np.int32), "dzbv")
-    from giddy_tpu.kernels.dzbv import tile_prep
-
-    assert tile_prep(col) is not None and "trow1" in tile_prep(col)
     np.testing.assert_array_equal(np.asarray(gt.decode(col)).view(np.uint32), v)

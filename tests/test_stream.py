@@ -1,5 +1,5 @@
 """Streaming decode: chunked upload+decode pipeline (the PCIe-overlap
-story's TPU analog, SURVEY.md §3.11 pipeline row)."""
+story's analog, SURVEY.md §3.11 pipeline row)."""
 
 import numpy as np
 import pytest
